@@ -1,0 +1,651 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py [--profile]
+
+Phases, each of which fails the run (non-zero exit) on any fault:
+
+1. device — require CUDA; print the card's name and power limit
+   (``nvidia-smi``) and the torch version;
+2. build  — compile the four hand-written kernels (``csrc/*.cu``, one
+   ``nvcc`` per source, all at once) and print the build seconds;
+3. kernels against their plain-torch versions, bit for bit, at the main
+   path's shapes: the 1 024 000 symbols per byte plane of a batch-4
+   ``gemma2-2b`` decode step (real logits of the warm-up prefill), plus
+   an odd-chunk case (chunk 1001, an e4m3 plane); each kernel is timed
+   with CUDA events beside its plain version (and, for B1, the one-call
+   gather ``lut[sym]`` as a yardstick the port never calls).  A chain
+   probe (one thread, dependent shared-memory table lookups) measures
+   the least time of one decode step, which bounds B3 and B4;
+4. serve ``gemma2-2b`` at full width: bf16 weights from a seeded
+   generator, a warm-up prefill of 4 prompts x 64 tokens whose logits'
+   byte-plane histograms build the books, then ``Engine.generate`` on 4
+   new prompts x 64 tokens for 32 new tokens with a bitexact chunked spec,
+   once with the ``multisym`` decode backend (kernel B4) and once with
+   ``scan`` (kernel B3).  Every step must decode losslessly, code 2 x 500
+   chunks, carry B2 chunk bits equal to histogram . lengths, and the
+   kernels' launch counters must show the path ran through them;
+5. the last lines: one ``{"kernels": [...]}`` record, then
+   ``{"ok": true, "device": {...}}``.
+
+``--profile`` adds a phase before the records: eight serve steps (no
+wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
+busy time per step, the idle share and the top kernels.
+
+It needs a checkout of this repository around it (it imports
+``src/repro_torch``) and a CUDA device; without either it exits non-zero
+before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SEED = 0
+BATCH, PROMPT, NEW = 4, 64, 32
+CHUNK, ODD_CHUNK = 2048, 1001
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
+INT32_LANES_PER_SM = 64          # Hopper SM: 4 partitions x 16 INT32 lanes
+
+# The chain probe: one thread walks ``steps`` dependent lookups of the
+# form a decoder's step takes at the least (shift, mask, shared-memory
+# load), through a table that holds one random cycle over its entries.
+CHAIN_PROBE_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void chain_kernel(const uint32_t* __restrict__ table, int size,
+                             long long steps, uint32_t* sink) {
+  extern __shared__ uint32_t s[];
+  for (int i = threadIdx.x; i < size; i += blockDim.x) s[i] = table[i];
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const uint32_t mask = static_cast<uint32_t>(size - 1);
+  uint32_t v = s[0];
+  for (long long i = 0; i < steps; ++i) v = s[(v >> 3) & mask];
+  *sink = v;
+}
+
+extern "C" int chain_launch(const void* table, int size, long long steps,
+                            void* sink, void* stream) {
+  chain_kernel<<<1, 256, size * sizeof(uint32_t),
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(table), size, steps,
+      static_cast<uint32_t*>(sink));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def need(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeError(what)
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(torch, got, want):
+    """(mismatching elements, max |difference|) over tensor tuples, with
+    int32 words compared as their unsigned values."""
+    bad, err = 0, 0
+    for g, w in zip(got, want):
+        g64 = g.to(torch.int64)
+        w64 = w.to(torch.int64)
+        if g.dtype == torch.int32:
+            g64, w64 = g64 & 0xFFFFFFFF, w64 & 0xFFFFFFFF
+        d = (g64 - w64).abs()
+        bad += int((d != 0).sum())
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return bad, err
+
+
+def main() -> int:
+    root = Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py needs the repository around it "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available",
+              file=sys.stderr)
+        return 2
+
+    from repro_torch.comm.compression import CompressionSpec, histogram256
+    from repro_torch.configs import get_config
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import (chunk_capacity_words,
+                                          chunk_counts_for, concat_chunks)
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.kernels import bitpack, build, decode, encode
+    from repro_torch.models import (decode_step, forward, model_init,
+                                    param_count, prefill)
+    from repro_torch.serve import Engine, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # ---------------------------------------------------------- 1. device
+    phase("device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip()
+    name = torch.cuda.get_device_name(0)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = sms * INT32_LANES_PER_SM * max_sm_mhz * 1e6
+    print(card)                             # as nvidia-smi gives it
+    print(f"{sms} SMs, max SM clock {max_sm_mhz} MHz: INT32 peak "
+          f"{int_ops_per_s:.4e} op/s")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {name} x{torch.cuda.device_count()}")
+
+    # ----------------------------------------------------------- 2. build
+    phase("build")
+    t0 = time.perf_counter()
+    probe_job = start_chain_probe(build)
+    try:
+        libs = build.build_all()
+    except BaseException:
+        probe_job[0].kill()
+        probe_job[0].wait()
+        raise
+    probe = finish_chain_probe(probe_job)
+    print(f"built {sorted(libs)} and the chain probe in "
+          f"{time.perf_counter() - t0:.3f} s")
+    for src, log in sorted(build.build_logs().items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}: {line.strip()}")
+
+    # ------------------------------- 4a. model + warm-up prefill (books)
+    phase("gemma2-2b init + warm-up prefill")
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        print(f"params: {param_count(params) / 1e9:.4f} B "
+              f"in {time.perf_counter() - t0:.1f} s")
+        warm = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                             generator=gen, device=dev)
+        logits, _ = prefill(params, {"tokens": warm}, cfg, PROMPT + NEW)
+    planes = SCHEMES["bf16"].to_symbols(logits)
+    books = {p: build_codebook(histogram256(s).cpu().numpy(),
+                               key=("act", "bf16", p))
+             for p, s in planes.items()}
+    for p, b in books.items():
+        print(f"book {p}: lengths {int(b.lengths.min())}.."
+              f"{int(b.lengths.max())}")
+    step_logits = logits[:, -1].to(torch.bfloat16)      # one decode step's
+    need(bool(torch.isfinite(step_logits.float()).all()), "warm-up logits "
+         "are not finite")
+
+    # -------------------------------------- 3. kernels vs plain versions
+    phase("kernels vs plain")
+    stats = {k: {"mismatches": 0, "max_abs_err": 0} for k in
+             ("encode_lookup", "pack_blocks", "decode_chunks_canonical",
+              "decode_chunks_multisym")}
+
+    def record(kname, got, want):
+        bad, err = compare(torch, got, want)
+        stats[kname]["mismatches"] += bad
+        stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], err)
+
+    def check_case(tag, sym_planes, case_books, chunk, time_it):
+        enc, timing = {}, {}
+        for p, sym in sym_planes.items():
+            b = case_books[p]
+            (lut,) = b.device_tables("lut", dev)
+            k1 = encode.encode_lookup(sym, lut)
+            record("encode_lookup", k1, encode.encode_lookup_plain(sym, lut))
+            k2 = bitpack.pack_blocks(k1[0], k1[1], chunk=chunk)
+            record("pack_blocks", k2, bitpack.pack_blocks_plain(
+                k1[0], k1[1], chunk=chunk))
+            n = sym.numel()
+            counts = torch.from_numpy(chunk_counts_for(n, chunk)).to(dev)
+            canon = b.device_tables("canonical", dev)
+            ms = b.device_tables("multisym", dev)
+            k3 = decode.decode_chunks_canonical(k2[0], counts, *canon,
+                                                chunk=chunk)
+            record("decode_chunks_canonical", (k3,),
+                   (decode.decode_chunks_canonical_plain(
+                       k2[0], counts, *canon, chunk=chunk),))
+            k4 = decode.decode_chunks_multisym(k2[0], counts, *ms, *canon,
+                                               chunk=chunk)
+            record("decode_chunks_multisym", (k4,),
+                   (decode.decode_chunks_multisym_plain(
+                       k2[0], counts, *ms, *canon, chunk=chunk),))
+            cc = chunk_counts_for(n, chunk)
+            need(torch.equal(concat_chunks(k4, cc), sym) and
+                 torch.equal(concat_chunks(k3, cc), sym),
+                 f"{tag}/{p}: kernels do not round-trip the plane")
+            enc[p] = (sym, lut, k1, k2, counts, canon, ms)
+        print(f"{tag}: chunk {chunk}, {len(sym_planes)} plane(s) x "
+              f"{next(iter(sym_planes.values())).numel()} symbols, "
+              f"mismatches so far "
+              f"{sum(s['mismatches'] for s in stats.values())}")
+        if not time_it:
+            return enc, timing
+        np_ = len(enc)
+        each = list(enc.values())
+
+        def over(fn):
+            return lambda: [fn(*e) for e in each]
+
+        timing["encode_lookup"] = (
+            cuda_ms(torch, over(lambda s, lut, *_: encode.encode_lookup(
+                s, lut)), 50) / np_,
+            cuda_ms(torch, over(lambda s, lut, *_: encode.encode_lookup_plain(
+                s, lut)), 20) / np_,
+            cuda_ms(torch, over(lambda s, lut, *_: lut[s.long()]), 50) / np_)
+        timing["pack_blocks"] = (
+            cuda_ms(torch, over(lambda s, lut, k1, *_: bitpack.pack_blocks(
+                k1[0], k1[1], chunk=chunk)), 50) / np_,
+            cuda_ms(torch, over(lambda s, lut, k1, *_:
+                                bitpack.pack_blocks_plain(
+                                    k1[0], k1[1], chunk=chunk)), 10) / np_,
+            None)
+        timing["decode_chunks_canonical"] = (
+            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
+                                decode.decode_chunks_canonical(
+                                    k2[0], c, *canon, chunk=chunk)), 10) / np_,
+            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
+                                decode.decode_chunks_canonical_plain(
+                                    k2[0], c, *canon, chunk=chunk)), 1) / np_,
+            None)
+        timing["decode_chunks_multisym"] = (
+            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
+                                decode.decode_chunks_multisym(
+                                    k2[0], c, *ms, *canon, chunk=chunk)),
+                    10) / np_,
+            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
+                                decode.decode_chunks_multisym_plain(
+                                    k2[0], c, *ms, *canon, chunk=chunk)),
+                    1) / np_,
+            None)
+        return enc, timing
+
+    main_enc, timing = check_case("main path (bf16 logits)",
+                                  SCHEMES["bf16"].to_symbols(step_logits),
+                                  books, CHUNK, time_it=True)
+    odd = SCHEMES["e4m3"].to_symbols(step_logits.float())
+    odd_books = {p: build_codebook(histogram256(s).cpu().numpy())
+                 for p, s in odd.items()}
+    check_case("odd chunk (e4m3 plane)", odd, odd_books, ODD_CHUNK,
+               time_it=False)
+    for k, s in stats.items():
+        need(s["mismatches"] == 0, f"kernel {k} disagrees with its plain "
+             f"version: {s}")
+    step_ns = chain_step_ns(torch, probe, dev)
+    print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
+
+    # ---------------------------------------------- 4b. serve at full width
+    phase("serve gemma2-2b (bitexact wire)")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    runs, specs = {}, {}
+    expect_kernel = {"multisym": "decode_chunks_multisym",
+                     "scan": "decode_chunks_canonical"}
+    n_sym = BATCH * cfg.vocab_size
+    chunks_per_step = 2 * len(chunk_counts_for(n_sym, CHUNK))
+    build.reset_launches()                  # the main path's count starts
+    for backend in ("multisym", "scan"):
+        spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                          mode="bitexact",
+                                          transport="chunked", chunk=CHUNK,
+                                          decode_backend=backend)
+        specs[backend] = spec
+        eng = Engine(params, cfg, ServeConfig(max_cache_len=PROMPT + NEW),
+                     spec, device=dev)
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        toks, totals = eng.generate(prompts, NEW)
+        wall = time.perf_counter() - t0
+        grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+        steps = eng.step_metrics
+        need(toks.shape == (BATCH, NEW), f"tokens shape {toks.shape}")
+        need(((toks >= 0) & (toks < cfg.vocab_size)).all(), "token ids")
+        need(len(steps) == NEW - 1, f"{len(steps)} decode steps")
+        need(totals["act_decode_mismatch"] == 0.0,
+             f"{backend}: {totals['act_decode_mismatch']} mismatches")
+        need(totals["act_decode_chunks"] == chunks_per_step * (NEW - 1),
+             f"{backend}: {totals['act_decode_chunks']} chunks")
+        for i, m in enumerate(steps):
+            need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
+                 f"{backend} step {i}: B2 bits {m['act_decoded_bits']} != "
+                 f"histogram . lengths {m['act_coded_bits']}")
+        for k in ("encode_lookup", "pack_blocks", expect_kernel[backend]):
+            need(grew[k] > 0, f"{backend}: kernel {k} was not launched")
+        step_s = sorted(m["step_seconds"] for m in steps)
+        med = step_s[len(step_s) // 2]
+        tail = len(step_s) - 11             # ten samples beyond it
+        runs[backend] = {"decode_steps": len(step_s),
+                         "decode_step_ms_median": med * 1e3,
+                         "decode_step_ms_min": step_s[0] * 1e3,
+                         "decode_step_ms_tail": step_s[tail] * 1e3,
+                         "tail_percentile": 100.0 * (tail + 1) / len(step_s),
+                         "tokens_per_s": BATCH / med,
+                         "generate_s": wall, "launches": grew,
+                         "coded_bits_per_step": totals["act_coded_bits"]
+                         / (NEW - 1),
+                         "raw_bits_per_step": totals["act_raw_bits"]
+                         / (NEW - 1)}
+        print(f"{backend}: decode step {med * 1e3:.3f} ms (median of "
+              f"{len(steps)}), {BATCH / med:.1f} tokens/s, coded/raw "
+              f"{totals['act_coded_bits'] / totals['act_raw_bits']:.4f}, "
+              f"launches {grew} [{card}]")
+    launches = dict(build.LAUNCHES)         # read right after the main path
+
+    # The serve step itself must not wait for the device: Engine.generate
+    # takes the step's one host sync when it reads the metrics.
+    for backend, spec in specs.items():
+        step_without_sync(torch, params, cfg, prompts, spec)
+    print("serve step: no host sync inside (torch sync debug mode 'error')")
+
+    # The same engine without a spec: the model's own step time.
+    eng = Engine(params, cfg, ServeConfig(max_cache_len=PROMPT + NEW),
+                 device=dev)
+    eng.generate(prompts, 8)
+    bare = sorted(m["step_seconds"] for m in eng.step_metrics)
+    runs["no_wire"] = {"decode_step_ms_median": bare[len(bare) // 2] * 1e3}
+    print(f"no wire: decode step "
+          f"{runs['no_wire']['decode_step_ms_median']:.3f} ms [{card}]")
+
+    # Output check on a small input: one decode step after a prefill
+    # agrees with the full-sequence forward at full width (bf16).
+    with torch.no_grad():
+        seq = prompts[:1, :9]
+        full = forward(params, {"tokens": seq}, cfg)[:, -1].float()
+        _, caches = prefill(params, {"tokens": seq[:, :8]}, cfg, 16)
+        one, _ = decode_step(params, seq[:, 8:9], caches, 8, cfg)
+        one = one[:, 0].float()
+    rel = float((one - full).abs().max() / full.abs().max())
+    need(bool(torch.isfinite(one).all()) and rel < 5e-2,
+         f"decode step vs forward: rel err {rel}")
+    print(f"decode step vs full forward (bf16, full width): max rel err {rel}")
+
+    if "--profile" in sys.argv[1:]:
+        phase("profile (torch.profiler, device timeline)")
+        prof = {k: profile_steps(torch, params, cfg, prompts, spec)
+                for k, spec in (("no_wire", None), *specs.items())}
+        print(json.dumps({"card": card, "profile": prof}))
+
+    # ------------------------------------------------------- 5. records
+    source = "src/repro_torch/kernels/csrc/"
+    meta = {
+        "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
+        "pack_blocks": ("B2", "bitpack.cu", "src/repro/kernels/bitpack.py:60"),
+        "decode_chunks_canonical": ("B3", "decode.cu",
+                                    "src/repro/kernels/decode.py:101"),
+        "decode_chunks_multisym": ("B4", "decode.cu",
+                                   "src/repro/kernels/decode.py:218"),
+    }
+    bounds = kernel_bounds(torch, main_enc, CHUNK, chunk_capacity_words,
+                           int_ops_per_s, step_ns)
+    kernels = []
+    for k, (tag, src, replaces) in meta.items():
+        ms, plain_ms, lib_ms = timing[k]
+        bound_s, bound_by, extra = bounds[k]
+        kernels.append({
+            "name": f"{tag} {k}", "route": "cuda", "source": source + src,
+            "replaces": replaces, "launches": launches[k],
+            "mismatches": stats[k]["mismatches"],
+            "max_abs_err": stats[k]["max_abs_err"],
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": lib_ms, **extra})
+    print(json.dumps({"card": card, "serve": runs}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def step_without_sync(torch, params, cfg, prompts, spec) -> None:
+    """Run one serve step (after a warm-up step that fills the per-book
+    device tables) with torch's CUDA sync debug mode set to raise."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import make_serve_step
+    step = make_serve_step(cfg, spec)
+    with torch.no_grad():
+        logits, caches = prefill(params, {"tokens": prompts}, cfg,
+                                 PROMPT + NEW)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        logits, caches, _ = step(params, tok, caches, PROMPT)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(params, tok, caches, PROMPT + 1)
+        except RuntimeError as e:
+            import traceback
+            where = [ln for ln in traceback.format_exc().splitlines()
+                     if "repro_torch" in ln or "chip_smoke" in ln]
+            raise SmokeError(f"serve step ({spec.decode_backend}) waits for "
+                             f"the device: {e}\n" + "\n".join(where)) from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
+    """Device time of ``steps`` serve steps after a prefill, from the
+    profiler's kernel events: busy ms per step, the idle share of the
+    steps' wall time, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import prefill
+    from repro_torch.serve import make_serve_step
+    step = make_serve_step(cfg, spec)
+    with torch.no_grad():
+        logits, caches = prefill(params, {"tokens": prompts}, cfg,
+                                 PROMPT + NEW)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        step(params, tok, caches, PROMPT)               # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            for i in range(1, steps + 1):
+                logits, caches, _ = step(params, tok, caches, PROMPT + i)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    kern = {}
+    for e in p.key_averages():
+        if e.device_type != DeviceType.CUDA:    # CPU ops repeat their
+            continue                            # kernels' device time
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kern[e.key] = kern.get(e.key, 0.0) + us
+    busy_ms = sum(kern.values()) / 1e3 / steps
+    wall_ms = wall * 1e3 / steps
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
+                                        for k, v in top}}
+
+
+def start_chain_probe(build):
+    """Start nvcc on the chain probe, into the kernels' build directory."""
+    out = build.build_dir() / "chain_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "chain_probe.cu"
+    src.write_text(CHAIN_PROBE_CU)
+    lib = out / "libchain_probe.so"
+    proc = subprocess.Popen(
+        [build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_chain_probe(job):
+    """Wait for the probe's nvcc and bind its C entry."""
+    import ctypes
+    proc, lib = job
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    need(proc.returncode == 0, f"nvcc failed on the chain probe:\n{out}")
+    fn = ctypes.CDLL(str(lib)).chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chain_step_ns(torch, launch, dev, size: int = 1 << 13,
+                  steps: int = 1 << 20) -> float:
+    """ns per step of the chain probe: the least of three timed walks of
+    ``steps`` dependent lookups through a ``size``-entry table whose
+    entries form one random cycle; the walk's end is checked."""
+    order = torch.randperm(size, generator=torch.Generator().manual_seed(SEED))
+    table = torch.empty(size, dtype=torch.int64)
+    table[order] = torch.roll(order, -1) << 3
+    table = table.to(torch.int32).to(dev)
+    sink = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        err = launch(table.data_ptr(), size, steps, sink.data_ptr(), stream)
+        need(err == 0, f"chain probe: launch failed with cudaError_t {err}")
+
+    best = min(cuda_ms(torch, run, 1) for _ in range(3))
+    start = int((order == 0).nonzero()[0, 0])
+    want = int(order[(start + steps + 1) % size]) << 3
+    need(int(sink.item()) == want, "chain probe: the walk ended at "
+         f"{int(sink.item())}, expected {want}")
+    return best * 1e6 / steps
+
+
+def multisym_windows(torch, lens, chunk: int, k: int, s_max: int):
+    """Windows B4 steps through in each chunk of a plane whose codes have
+    lengths ``lens`` (N,): from its cursor a window takes the following
+    codes while they fit in k bits, at most s_max of them, and at least
+    one (a longer code's slow path), as ``build_multisym_tables`` does."""
+    dev = lens.device
+    n = lens.numel()
+    nb = -(-n // chunk)
+    ln = torch.zeros(nb * chunk, dtype=torch.int64, device=dev)
+    ln[:n] = lens.to(torch.int64)
+    ends = torch.cat([torch.zeros((nb, 1), dtype=torch.int64, device=dev),
+                      ln.reshape(nb, chunk).cumsum(1)], dim=1)
+    counts = torch.clamp(n - torch.arange(nb, device=dev) * chunk, max=chunk)
+    pos = torch.zeros(nb, dtype=torch.int64, device=dev)
+    steps = torch.zeros(nb, dtype=torch.int64, device=dev)
+    while True:
+        live = pos < counts
+        if not bool(live.any()):
+            return steps
+        reach = ends.gather(1, pos[:, None]) + k
+        fit = torch.searchsorted(ends, reach, right=True)[:, 0] - 1
+        nxt = torch.minimum(torch.maximum(fit, pos + 1), pos + s_max)
+        pos = torch.where(live, nxt, pos)
+        steps += live.to(torch.int64)
+
+
+def kernel_bounds(torch, enc, chunk, cap_words, int_ops_per_s, step_ns):
+    """Least time per call (one plane, the mean of the planes) for each
+    kernel on this run's data: the larger of bytes over the HBM rate
+    (each input read once, each output written once) and 32-bit
+    operations over the card's INT32 rate.  B3 and B4 also get their
+    chain bound: inside a chunk each step needs the step before it, so
+    a call takes at least its longest chunk's steps (B3: its symbols,
+    B4: its windows) times the least time of one step (``step_ns``)."""
+    n = sum(e[0].numel() for e in enc.values()) / len(enc)
+    bits = sum(int(e[3][1].to(torch.int64).sum()) for e in enc.values()
+               ) / len(enc)
+    nb = -(-int(n) // chunk)
+    cap = cap_words(chunk)
+    # words a decoder must read: each chunk's payload plus its pad word
+    used_words = sum(int(((e[3][1].to(torch.int64) + 31) // 32 + 1).sum())
+                     for e in enc.values()) / len(enc)
+    tables = (3 * 17 + 256) * 4
+    ms_tables = (1 << 13) * (8 + 2)
+
+    def best(nbytes, ops):
+        tb, to = nbytes / HBM_BYTES_PER_S, ops / int_ops_per_s
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    windows = bits / 13.0                   # a window consumes <= 13 bits
+    out = {
+        "encode_lookup": best(n + 256 * 8 + 8 * n + 8, 2 * n),
+        "pack_blocks": best(8 * n + nb * cap * 4 + nb * 4, 12 * n),
+        "decode_chunks_canonical": best(
+            used_words * 4 + nb * 4 + tables + nb * chunk * 4,
+            8 * n + 5 * bits),
+        "decode_chunks_multisym": best(
+            used_words * 4 + nb * 4 + tables + ms_tables + nb * chunk * 4,
+            12 * windows + 3 * n),
+    }
+    chain = {       # the longest chunk's steps, per plane
+        "decode_chunks_canonical": {
+            p: int(e[4].max()) for p, e in enc.items()},
+        "decode_chunks_multisym": {
+            p: int(multisym_windows(torch, e[2][1], chunk, e[6][0].shape[0]
+                                    .bit_length() - 1, e[6][0].shape[1]).max())
+            for p, e in enc.items()},
+    }
+    extra = {"mean_code_bits": bits / n, "symbols": int(n), "chunks": nb}
+    res = {}
+    for k, (t, by) in out.items():
+        more = dict(extra)
+        if k in chain:
+            steps = sum(chain[k].values()) / len(enc)
+            more.update(chain_steps_per_chunk=steps,
+                        chain_steps_by_plane=chain[k], chain_step_ns=step_ns,
+                        chain_bound_ms=steps * step_ns * 1e-6)
+        res[k] = (t, by, more)
+    return res
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,409 @@
+"""Chunked wire format, plain-torch codecs and the encode/decode entry
+points (port of ``repro.core.encoder``).
+
+Wire format (the contract with the reference, bit for bit): a plane of
+n uint8 symbols is cut into chunks of ``chunk`` symbols (the last may be
+short); each chunk packs its canonical codewords MSB-first into
+big-endian 32-bit words, ``chunk_capacity_words(chunk)`` words per
+chunk with the slack zeroed, plus the chunk's bit count as its header.
+
+Words are held as **int32 bit patterns** (CPU torch has no uint32
+arithmetic); packing works in int64, and a consumer that needs the
+unsigned words converts at the boundary with
+``words.numpy().view(np.uint32)``.
+
+The functions here are the plain-torch formulations — the CPU path and
+the oracles the CUDA kernels are held to on the card:
+
+  pack_rows / encode_chunked_rows / recode_chunks — the ``_pack_rows``
+      bit-pack core (reference ``encode_chunked_jit``,
+      ``recode_chunks_jit``);
+  decode_chunks           — the canonical walk (``decode_chunks_jit``);
+  decode_chunks_multisym  — the K-bit window-LUT multisym decode
+      (``decode_chunks_multisym_jit``, by B4's algorithm).
+
+Both decoders are loops over output slots, vectorised across chunks.
+The entry points ``encode_chunked`` / ``decode_chunked`` /
+``decode_dispatch`` go through ``repro_torch.kernels``, whose wrappers
+launch the CUDA kernels for tensors on the card and run these plain
+versions for tensors on the CPU.  ``encode_np`` / ``decode_np`` are the
+pure-Python oracles.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .huffman import MAX_CODE_LEN
+
+__all__ = [
+    "DEFAULT_CHUNK", "ChunkedStream",
+    "chunk_capacity_words", "chunk_counts_for", "concat_chunks",
+    "u32_values", "window32", "canonical_first_code",
+    "pack_rows", "encode_chunked_rows", "recode_chunks",
+    "decode_chunks", "decode_chunks_multisym",
+    "encode_chunked", "decode_chunked", "decode_dispatch",
+    "encode_np", "decode_np",
+]
+
+# Symbols per chunk of the chunked wire format (reference DEFAULT_CHUNK,
+# and the reference Pallas pack kernel's BLOCK).
+DEFAULT_CHUNK = 2048
+
+_U32 = 0xFFFFFFFF
+
+
+def chunk_capacity_words(chunk: int, max_len: int = MAX_CODE_LEN) -> int:
+    """Worst-case uint32 words per chunk (+1 pad word for window reads).
+
+    Ceiling division, as in the reference: an odd chunk keeps a true
+    pad word, so a decoder clamping its two-word window fetch to
+    ``cap - 2`` never misreads the final codewords.  1025 at chunk 2048.
+    """
+    return (chunk * max_len + 31) // 32 + 1
+
+
+def chunk_counts_for(n_symbols: int, chunk: int) -> np.ndarray:
+    """Symbols per chunk for an n-symbol stream: all full except the tail."""
+    nb = max((n_symbols + chunk - 1) // chunk, 1)
+    counts = np.full(nb, chunk, dtype=np.int32)
+    counts[-1] = n_symbols - (nb - 1) * chunk
+    return counts
+
+
+def concat_chunks(blocks: torch.Tensor, chunk_counts: np.ndarray
+                  ) -> torch.Tensor:
+    """(NB, chunk) padded symbol blocks → flat (Σcounts,) uint8."""
+    counts = np.asarray(chunk_counts)
+    if int(counts[-1]) == blocks.shape[1]:
+        return blocks.reshape(-1).to(torch.uint8)
+    head = blocks[:-1].reshape(-1)
+    tail = blocks[-1, : int(counts[-1])]
+    return torch.cat([head, tail]).to(torch.uint8)
+
+
+def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) → the int32 tensor with the same bits."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def u32_values(words: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns → their unsigned values, as int64."""
+    return words.to(torch.int64) & _U32
+
+
+# --------------------------------------------------------------------------
+# Bit packing
+# --------------------------------------------------------------------------
+def pack_rows(v: torch.Tensor, l: torch.Tensor, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared bit-pack core: per-row MSB-first packing via two masked shifts.
+
+    v: (NB, C) right-aligned codewords, l: (NB, C) lengths (0 ⇒ the slot
+    contributes no bits), both integer.  Returns (words (NB, cap) int32
+    bit patterns, bits (NB,) int32).  A codeword of length ≤ 16 starting
+    at bit offset o spans at most two words; the high and low parts are
+    scatter-added, and since the fields are disjoint, add ≡ or.
+    """
+    nb = v.shape[0]
+    dev = v.device
+    if v.shape[1] == 0:
+        return (torch.zeros((nb, cap), dtype=torch.int32, device=dev),
+                torch.zeros((nb,), dtype=torch.int32, device=dev))
+    v = v.to(torch.int64)
+    l = l.to(torch.int64)
+    ends = torch.cumsum(l, dim=1)
+    offs = ends - l                                  # exclusive prefix sum
+    bits = ends[:, -1].to(torch.int32)
+    pos = offs & 31                                  # bit position in word
+    idx = offs >> 5                                  # word index in row
+    # sh = 32 - pos - l: the left shift that puts the code's end at the
+    # word's end.  Negative sh: the low |sh| bits spill into word + 1.
+    sh = 32 - pos - l
+    hi = torch.where(sh >= 0, v << sh.clamp(0, 31), v >> (-sh).clamp(0, 31))
+    lo = torch.where(sh < 0, (v << (32 + sh).clamp(0, 31)) & _U32,
+                     torch.zeros_like(v))
+    flat = (torch.arange(nb, device=dev)[:, None] * cap + idx).reshape(-1)
+    # One spare slot: a zero-length tail entry after a chunk filled to
+    # its last payload word indexes word cap of the last row.
+    words = torch.zeros(nb * cap + 1, dtype=torch.int64, device=dev)
+    words.scatter_add_(0, flat, hi.reshape(-1))
+    words.scatter_add_(0, flat + 1, lo.reshape(-1))
+    return _to_int32_bits(words[: nb * cap].reshape(nb, cap)), bits
+
+
+def encode_chunked_rows(symbols: torch.Tensor, codes: torch.Tensor,
+                        lengths: torch.Tensor, chunk: int = DEFAULT_CHUNK,
+                        max_len: int = MAX_CODE_LEN
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain chunked encode (reference ``encode_chunked_jit``).
+
+    symbols (N,) uint8/int, codes/lengths (256,) integer tables →
+    (block_words (NB, cap) int32, block_bits (NB,) int32).  Tail
+    positions past N get length 0 and contribute no bits.
+    """
+    n = symbols.shape[0]
+    nb = max((n + chunk - 1) // chunk, 1)
+    sym = torch.zeros(nb * chunk, dtype=torch.int64, device=symbols.device)
+    sym[:n] = symbols.reshape(-1).to(torch.int64)
+    sym = sym.reshape(nb, chunk)
+    valid = (torch.arange(nb * chunk, device=symbols.device) < n
+             ).reshape(nb, chunk)
+    v = codes.to(torch.int64)[sym] * valid
+    l = lengths.to(torch.int64)[sym] * valid
+    return pack_rows(v, l, chunk_capacity_words(chunk, max_len))
+
+
+def recode_chunks(sym_blocks: torch.Tensor, chunk_counts: torch.Tensor,
+                  codes: torch.Tensor, lengths: torch.Tensor,
+                  max_len: int = MAX_CODE_LEN
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-encode already-blocked symbols (reference ``recode_chunks_jit``):
+    (NB, chunk) symbols + (NB,) counts → the chunked stream, bit-identical
+    to ``encode_chunked_rows`` on the equivalent flat stream."""
+    nb, chunk = sym_blocks.shape
+    sym = sym_blocks.to(torch.int64)
+    valid = (torch.arange(chunk, device=sym.device)[None, :]
+             < chunk_counts.to(torch.int64)[:, None])
+    v = codes.to(torch.int64)[sym] * valid
+    l = lengths.to(torch.int64)[sym] * valid
+    return pack_rows(v, l, chunk_capacity_words(chunk, max_len))
+
+
+# --------------------------------------------------------------------------
+# Decoders: loops over output slots, every chunk advancing in lockstep
+# --------------------------------------------------------------------------
+def window32(w: torch.Tensor, bit_pos: torch.Tensor, cap: int
+              ) -> torch.Tensor:
+    """The 32 stream bits at each row's cursor (w: unsigned words as
+    int64, bit_pos (NB,) int64); the fetch clamps to words cap-2, cap-1."""
+    widx = torch.clamp(bit_pos >> 5, max=cap - 2)
+    pin = bit_pos & 31
+    w0 = w.gather(1, widx[:, None])[:, 0]
+    w1 = w.gather(1, widx[:, None] + 1)[:, 0]
+    return ((w0 << pin) | (w1 >> (32 - pin))) & _U32
+
+
+def canonical_first_code(window: torch.Tensor, fc: torch.Tensor,
+                         bi: torch.Tensor, nc: torch.Tensor,
+                         ss: torch.Tensor, ls: torch.Tensor, max_len: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Canonical-prefix search over candidate lengths ``ls`` for the
+    ``max_len``-bit windows (NB,): (length, symbol) of each window's
+    first code — the smallest valid length, or ``ls[0]`` if none is."""
+    cand = window[:, None] >> (max_len - ls)[None, :]
+    off = cand - fc[ls][None, :]
+    valid = (off >= 0) & (off < nc[ls][None, :])
+    li = valid.to(torch.int32).argmax(dim=1)
+    l = ls[li]
+    o = off.gather(1, li[:, None])[:, 0]
+    sym = ss[torch.clamp(bi[l] + o, 0, ss.shape[0] - 1)]
+    return l, sym
+
+
+def decode_chunks(block_words: torch.Tensor, chunk_counts: torch.Tensor,
+                  first_code: torch.Tensor, base_index: torch.Tensor,
+                  num_codes: torch.Tensor, sorted_symbols: torch.Tensor,
+                  chunk: int = DEFAULT_CHUNK, max_len: int = MAX_CODE_LEN
+                  ) -> torch.Tensor:
+    """Canonical walk over every chunk (reference ``decode_chunks_jit``).
+
+    block_words (NB, cap) int32, chunk_counts (NB,) int32 → (NB, chunk)
+    int32 symbols, zero past each chunk's count.  One step per output
+    slot: read a max_len-bit window at the cursor, find the unique code
+    length, emit ``sorted_symbols[base_index[l] + offset]``, advance.
+    """
+    nb, cap = block_words.shape
+    dev = block_words.device
+    w = u32_values(block_words)
+    counts = chunk_counts.to(torch.int64)
+    fc, bi, nc, ss = (t.to(torch.int64) for t in
+                      (first_code, base_index, num_codes, sorted_symbols))
+    ls = torch.arange(1, max_len + 1, device=dev)
+    bit_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
+    out = torch.zeros((nb, chunk), dtype=torch.int32, device=dev)
+    for k in range(chunk):
+        window = window32(w, bit_pos, cap) >> (32 - max_len)
+        l, sym = canonical_first_code(window, fc, bi, nc, ss, ls, max_len)
+        live = k < counts
+        bit_pos = bit_pos + torch.where(live, l, 0)
+        out[:, k] = torch.where(live, sym, 0).to(torch.int32)
+    return out
+
+
+def decode_chunks_multisym(block_words: torch.Tensor,
+                           chunk_counts: torch.Tensor, syms: torch.Tensor,
+                           meta: torch.Tensor, first_code: torch.Tensor,
+                           base_index: torch.Tensor, num_codes: torch.Tensor,
+                           sorted_symbols: torch.Tensor,
+                           chunk: int = DEFAULT_CHUNK,
+                           max_len: int = MAX_CODE_LEN) -> torch.Tensor:
+    """Multi-symbol K-bit window-LUT decode (reference
+    ``decode_chunks_multisym_jit`` / ``decode_chunks_multisym_pallas``;
+    the algorithm of kernel B4).
+
+    (NB, cap) int32 words, (NB,) counts, the (2^k, s_max) symbol LUT and
+    (2^k,) ``count | bits << 8`` meta, and the canonical tables →
+    (NB, chunk) int32, zero past each count.  Every step, each chunk
+    still short of its count reads its K-bit window, emits the window's
+    symbols (or, for a first code longer than K bits, the canonical
+    walk's one symbol) and advances.
+    """
+    nb, cap = block_words.shape
+    dev = block_words.device
+    size, s_max = syms.shape
+    k = size.bit_length() - 1
+    w = u32_values(block_words)
+    counts = chunk_counts.to(torch.int64)
+    stab = syms.to(torch.int64)
+    mtab = meta.to(torch.int64)
+    fc, bi, nc, ss = (t.to(torch.int64) for t in
+                      (first_code, base_index, num_codes, sorted_symbols))
+    ls = torch.arange(k + 1, max_len + 1, device=dev)
+    js = torch.arange(s_max, device=dev)
+    rows = torch.arange(nb, device=dev)
+    out = torch.zeros((nb, chunk + s_max), dtype=torch.int64, device=dev)
+    bit_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
+    out_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
+    while True:
+        active = out_pos < counts
+        if not bool(active.any()):
+            break
+        win = window32(w, bit_pos, cap)
+        idx = win >> (32 - k)
+        m = mtab[idx]
+        cnt = m & 0xFF
+        adv = (m >> 8) & 0xFF
+        emit = stab[idx]
+        if k < max_len:                                   # slow path
+            l, fsym = canonical_first_code(win >> (32 - max_len), fc, bi,
+                                           nc, ss, ls, max_len)
+            slow = cnt == 0
+            emit = torch.where(slow[:, None],
+                               torch.where(js == 0, fsym[:, None], 0), emit)
+            cnt = torch.where(slow, 1, cnt)
+            adv = torch.where(slow, l, adv)
+        r = rows[active]
+        out[r[:, None], out_pos[active][:, None] + js] = emit[active]
+        out_pos = torch.where(active, out_pos + cnt, out_pos)
+        bit_pos = torch.where(active, bit_pos + adv, bit_pos)
+    o = torch.arange(chunk, device=dev)[None, :]
+    return torch.where(o < counts[:, None], out[:, :chunk], 0).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Entry points
+# --------------------------------------------------------------------------
+@dataclass
+class ChunkedStream:
+    """A Huffman bitstream cut into independently decodable chunks.
+
+    block_words[b] holds chunk b's MSB-first packed words as int32 bit
+    patterns (word-aligned start, slack zeroed); block_bits[b] is its
+    true payload size — the per-chunk header a receiver reads first.
+    """
+    block_words: torch.Tensor   # (NB, cap) int32
+    block_bits: torch.Tensor    # (NB,) int32
+    n_symbols: int
+    chunk: int
+    book_id: int = -1
+
+    @property
+    def n_chunks(self) -> int:
+        return self.block_words.shape[0]
+
+    def chunk_counts(self) -> np.ndarray:
+        return chunk_counts_for(self.n_symbols, self.chunk)
+
+
+def encode_chunked(symbols, book, *, chunk: int = DEFAULT_CHUNK,
+                   device=None) -> ChunkedStream:
+    """Single-stage encode into the chunked wire format.
+
+    Runs on ``device`` (CUDA unless named): the codebook lookup (kernel
+    B1) and then the per-chunk pack (kernel B2), two launches; on the
+    CPU both wrappers run their plain versions.
+    """
+    from ..kernels.ops import encode_with_book
+    dev = resolve_device(device)
+    sym = torch.as_tensor(symbols).reshape(-1).to(device=dev,
+                                                  dtype=torch.uint8)
+    words, bits = encode_with_book(sym, book, chunk=chunk)
+    return ChunkedStream(block_words=words, block_bits=bits,
+                         n_symbols=int(sym.shape[0]), chunk=chunk,
+                         book_id=book.book_id)
+
+
+def decode_chunked(stream: ChunkedStream, book, *,
+                   backend: str = "auto") -> torch.Tensor:
+    """Decode a ChunkedStream back to its uint8 symbols, on the device
+    its words lie on.  ``"auto"`` means the canonical walk here (the
+    reference entry point's ``pallas`` contract); spec-level ``"auto"``
+    resolves to the codec's default instead."""
+    from .codec import codec_for_book
+    counts = torch.from_numpy(stream.chunk_counts()).to(
+        stream.block_words.device)
+    out = codec_for_book(book).decode_blocks(
+        stream.block_words, counts, book, stream.chunk,
+        "pallas" if backend == "auto" else backend)
+    return concat_chunks(out, stream.chunk_counts())
+
+
+def decode_dispatch(stream, book, n_symbols: Optional[int] = None, *,
+                    backend: str = "auto") -> torch.Tensor:
+    """Route a stream to the right decoder: a ChunkedStream to the
+    chunked decode; a monolithic word buffer (``chunk_capacity_words(n)``
+    words) to the book's codec as one chunk of ``n_symbols``."""
+    from .codec import codec_for_book
+    if isinstance(stream, ChunkedStream):
+        return decode_chunked(stream, book, backend=backend)
+    if n_symbols is None:
+        raise ValueError("monolithic decode needs n_symbols")
+    return codec_for_book(book).decode_plane(stream, book, n_symbols).to(
+        torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# NumPy reference codec (independent oracle, copied from the reference)
+# --------------------------------------------------------------------------
+def encode_np(symbols: np.ndarray, codes: np.ndarray,
+              lengths: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Bit-exact reference encoder: plain Python bit twiddling."""
+    bits = []
+    for s in np.asarray(symbols).astype(np.int64):
+        l = int(lengths[s])
+        c = int(codes[s])
+        bits.extend(((c >> (l - 1 - i)) & 1) for i in range(l))
+    n_bits = len(bits)
+    n_words = (n_bits + 31) // 32 + 1
+    words = np.zeros(n_words, dtype=np.uint32)
+    for i, b in enumerate(bits):
+        if b:
+            words[i >> 5] |= np.uint32(1) << np.uint32(31 - (i & 31))
+    return words, n_bits
+
+
+def decode_np(words: np.ndarray, n_symbols: int, book) -> np.ndarray:
+    """Bit-serial canonical decode of a uint32 word stream."""
+    t = book.tables
+    out = np.zeros(n_symbols, dtype=np.uint8)
+    pos = 0
+    for k in range(n_symbols):
+        code = 0
+        l = 0
+        while True:
+            l += 1
+            bit = (int(words[pos >> 5]) >> (31 - (pos & 31))) & 1
+            pos += 1
+            code = (code << 1) | bit
+            off = code - int(t.first_code[l])
+            if 0 <= off < int(t.num_codes[l]):
+                out[k] = t.sorted_symbols[int(t.base_index[l]) + off]
+                break
+            if l >= t.max_len:
+                raise ValueError("corrupt stream")
+    return out

@@ -1,0 +1,140 @@
+"""Kernels B3 and B4: chunked canonical Huffman decode
+(``csrc/decode.cu``).
+
+B3 (``decode_chunks_canonical``) replaces
+``repro/kernels/decode.py::decode_chunks_pallas``: a per-chunk canonical
+walk, one symbol a step.  B4 (``decode_chunks_multisym``) replaces
+``repro/kernels/decode.py::decode_chunks_multisym_pallas``: a K-bit
+window LUT emitting up to s_max symbols a step, with the inline
+canonical slow path for codes longer than K bits.
+
+Bound on the card: the dependent chain inside a chunk (2048 steps for
+B3, about 2048 / s̄ for B4), not bytes or operations.  One thread walks
+one chunk and a CTA is one warp, so a plane's 500 chunks spread over 16
+SMs; B4 holds its LUT as uint8 symbols and uint16 metadata, 80 KB of
+shared memory (see the source).  Both are simple and slow; making them
+fast is later work.
+
+Each has its plain-torch twin beside it, the decoders of
+``core.encoder``: ``decode_chunks_canonical_plain`` is the reference's
+``decode_chunks_jit`` walk, and ``decode_chunks_multisym_plain`` runs
+B4's own algorithm — LUT step, slow path, emit — as a loop over steps
+vectorised across chunks.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.encoder import (DEFAULT_CHUNK, chunk_capacity_words,
+                            decode_chunks, decode_chunks_multisym as _multisym)
+from ..core.huffman import MAX_CODE_LEN
+from .build import I, P, bind, check, count_launch, raise_on
+
+__all__ = ["decode_chunks_canonical", "decode_chunks_canonical_plain",
+           "decode_chunks_multisym", "decode_chunks_multisym_plain"]
+
+decode_chunks_canonical_plain = decode_chunks
+decode_chunks_multisym_plain = _multisym
+
+
+def _check_stream(block_words, chunk_counts, chunk, max_len, tables):
+    dev = block_words.device
+    nb, cap = block_words.shape
+    if cap != chunk_capacity_words(chunk, max_len):
+        raise ValueError(f"cap {cap} != capacity for chunk={chunk}")
+    if not 1 <= max_len <= 16:
+        raise ValueError(f"max_len must be in [1, 16], got {max_len}")
+    check(block_words, "block_words", torch.int32, dev)
+    check(chunk_counts, "chunk_counts", torch.int32, dev, (nb,))
+    fc, bi, nc, ss = tables
+    for name, t in (("first_code", fc), ("base_index", bi),
+                    ("num_codes", nc)):
+        check(t, name, torch.int32, dev, (max_len + 1,))
+    check(ss, "sorted_symbols", torch.int32, dev)
+    if not 1 <= ss.numel() <= 256:
+        raise ValueError(f"sorted_symbols has {ss.numel()} entries; "
+                         f"expected 1..256")
+    return dev, nb, cap
+
+
+def decode_chunks_canonical(block_words: torch.Tensor,
+                            chunk_counts: torch.Tensor,
+                            first_code: torch.Tensor, base_index: torch.Tensor,
+                            num_codes: torch.Tensor,
+                            sorted_symbols: torch.Tensor, *,
+                            chunk: int = DEFAULT_CHUNK,
+                            max_len: int = MAX_CODE_LEN) -> torch.Tensor:
+    """Kernel B3 on CUDA tensors, the plain walk on CPU tensors.
+
+    block_words (NB, cap) int32, chunk_counts (NB,) int32, the canonical
+    tables as int32 → (NB, chunk) int32 symbols, zero past each count.
+    """
+    tables = (first_code, base_index, num_codes, sorted_symbols)
+    if block_words.device.type == "cpu":
+        return decode_chunks_canonical_plain(block_words, chunk_counts,
+                                             *tables, chunk=chunk,
+                                             max_len=max_len)
+    if block_words.device.type != "cuda":
+        raise ValueError(f"no B3 kernel for device {block_words.device}")
+    dev, nb, cap = _check_stream(block_words, chunk_counts, chunk, max_len,
+                                 tables)
+    out = torch.empty((nb, chunk), dtype=torch.int32, device=dev)
+    fn = bind("decode", "decode_canonical_launch",
+              [P, P, P, P, P, P, I, P, I, I, I, I, P])
+    with torch.cuda.device(dev):
+        err = fn(block_words.data_ptr(), chunk_counts.data_ptr(),
+                 *(t.data_ptr() for t in tables), sorted_symbols.numel(),
+                 out.data_ptr(), nb, chunk, cap, max_len,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "decode_chunks_canonical (B3)")
+    count_launch("decode_chunks_canonical")
+    return out
+
+
+def decode_chunks_multisym(block_words: torch.Tensor,
+                           chunk_counts: torch.Tensor, syms: torch.Tensor,
+                           meta: torch.Tensor, first_code: torch.Tensor,
+                           base_index: torch.Tensor, num_codes: torch.Tensor,
+                           sorted_symbols: torch.Tensor, *,
+                           chunk: int = DEFAULT_CHUNK,
+                           max_len: int = MAX_CODE_LEN) -> torch.Tensor:
+    """Kernel B4 on CUDA tensors, its plain version on CPU tensors.
+
+    As ``decode_chunks_canonical`` plus the book's compact LUT
+    (``Codebook.device_tables("multisym", device)``): syms (2^k, s_max)
+    uint8 and meta (2^k,) int16 holding ``count | bits << 8``.
+    """
+    tables = (first_code, base_index, num_codes, sorted_symbols)
+    if block_words.device.type == "cpu":
+        return decode_chunks_multisym_plain(block_words, chunk_counts, syms,
+                                            meta, *tables, chunk=chunk,
+                                            max_len=max_len)
+    if block_words.device.type != "cuda":
+        raise ValueError(f"no B4 kernel for device {block_words.device}")
+    dev, nb, cap = _check_stream(block_words, chunk_counts, chunk, max_len,
+                                 tables)
+    size, s_max = syms.shape
+    k = size.bit_length() - 1
+    if (1 << k) != size or not 3 <= k < max_len:
+        raise ValueError(f"multisym table size {size} must be 2^k with "
+                         f"3 <= k < max_len")
+    if (size * s_max) % 16:
+        raise ValueError(f"syms table of {size * s_max} B is not a "
+                         f"multiple of 16 B")
+    check(syms, "syms", torch.uint8, dev)
+    check(meta, "meta", torch.int16, dev, (size,))
+    for name, t in (("syms", syms), ("meta", meta)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    out = torch.empty((nb, chunk), dtype=torch.int32, device=dev)
+    fn = bind("decode", "decode_multisym_launch",
+              [P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, P])
+    with torch.cuda.device(dev):
+        err = fn(block_words.data_ptr(), chunk_counts.data_ptr(),
+                 syms.data_ptr(), meta.data_ptr(),
+                 *(t.data_ptr() for t in tables), sorted_symbols.numel(),
+                 out.data_ptr(), nb, chunk, cap, k, s_max, max_len,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "decode_chunks_multisym (B4)")
+    count_launch("decode_chunks_multisym")
+    return out

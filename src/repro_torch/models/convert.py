@@ -1,0 +1,46 @@
+"""Reference parameter trees → the port's parameters.
+
+``from_jax_params`` takes the JAX package's parameter pytree with its
+leaves given as NumPy arrays (for example through ``jax.device_get``)
+and returns the same tree of torch tensors, which is exactly the port's
+parameter layout (stacked ``(repeats, ...)`` leaves and all).  bfloat16
+leaves arrive as ``ml_dtypes`` arrays; they are recognised by dtype name
+and reinterpreted bit for bit through int16, so this module imports
+neither jax nor ml_dtypes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .common import ModelConfig, tree_map
+
+__all__ = ["from_jax_params", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """One leaf, bit-exact: bfloat16 by its dtype name via int16, the
+    rest through ``torch.from_numpy``."""
+    a = np.array(a)                      # an owned, writable copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def from_jax_params(np_tree, cfg: ModelConfig, device=None):
+    """The reference's ``model_init`` tree (NumPy leaves) as the port's
+    parameters on ``device`` (CUDA unless named).  Checks the embedding
+    and first group's depth against ``cfg``."""
+    dev = resolve_device(device)
+    params = tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
+    table = params["embed"]["table"]
+    if tuple(table.shape) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embedding {tuple(table.shape)} does not match "
+                         f"config ({cfg.vocab_size}, {cfg.d_model})")
+    if len(params["groups"]) != len(cfg.blocks):
+        raise ValueError(f"{len(params['groups'])} groups for "
+                         f"{len(cfg.blocks)} block groups")
+    return params

@@ -1,0 +1,231 @@
+"""Shared neural layers (port of ``repro.models.layers``): RMSNorm,
+rotary embeddings, GQA attention (full / sliding window, full-sequence,
+prefill and cached one-token decode), gated MLP, embeddings.
+
+Tensor layouts are the reference's: ``wq (d, H, hd)``, ``wk/wv
+(d, KV, hd)``, ``wo (H, hd, d)``, KV caches ``(B, slots, KV, hd)`` with
+``pos (slots,)`` (absolute positions, -1 for empty slots).  Math runs in
+``cfg.dtype`` with float32 softmax and norm accumulators.  Attention is
+plain torch (einsum and a float32 softmax with optional softcap), as the
+reference computes it in plain jnp.
+
+The cached decode updates the KV cache in place (the reference returns
+a new cache): the caller's cache tensors are the step's output.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .common import ModelConfig, truncated_normal_init
+
+_NEG = torch.finfo(torch.float32).min
+
+
+# ---------------------------------------------------------------- RMSNorm
+def rmsnorm_init(cfg: ModelConfig, device, width: Optional[int] = None):
+    return {"scale": torch.zeros((width or cfg.d_model,), dtype=torch.float32,
+                                 device=device)}
+
+
+def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + params["scale"])
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_angles(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) int → (cos, sin) of shape (..., dim/2), float32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (B, S, H, D) with positions (B, S) or (S,)."""
+    cos, sin = rope_angles(positions, x.shape[-1], theta)
+    cos = cos[..., None, :].to(x.dtype)
+    sin = sin[..., None, :].to(x.dtype)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ----------------------------------------------------------- GQA attention
+def attn_init(cfg: ModelConfig, generator, device):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s_in = d ** -0.5
+    s_out = (h * hd) ** -0.5
+
+    def w(shape, scale):
+        return truncated_normal_init(shape, cfg.dtype, scale, generator,
+                                     device)
+
+    p = {"wq": w((d, h, hd), s_in), "wk": w((d, kv, hd), s_in),
+         "wv": w((d, kv, hd), s_in), "wo": w((h, hd, d), s_out)}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg, device, hd)
+        p["k_norm"] = rmsnorm_init(cfg, device, hd)
+    return p
+
+
+def _qkv(params, x, cfg: ModelConfig, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, mask, cfg: ModelConfig):
+    """q (B,S,H,hd), k/v (B,T,KV,hd), mask broadcastable to
+    (B, KV, G, S, T) bool → (B, S, H, hd)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    q = q.reshape(b, s, kvh, h // kvh, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
+    logits = logits * hd ** -0.5
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    logits = torch.where(mask, logits, _NEG)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(b, s, h, hd)
+
+
+def causal_mask(s: int, window: int, device) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m = m & (i - j < window)
+    return m
+
+
+def _seq_mask(s: int, cfg: ModelConfig, window: int, device):
+    if cfg.causal:
+        return causal_mask(s, window, device)
+    return torch.ones((s, s), dtype=torch.bool, device=device)
+
+
+def attn_apply(params, x, cfg: ModelConfig, *, window: int = 0):
+    """Full-sequence attention (train / prefill).  window>0 → sliding."""
+    y, _ = _attn_full(params, x, cfg, window)
+    return y
+
+
+def _attn_full(params, x, cfg: ModelConfig, window: int):
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = _attend(q, k, v, _seq_mask(s, cfg, window, x.device), cfg)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
+                    window: int = 0, dtype=None):
+    """window>0 → ring buffer of that many slots, else full cache_len."""
+    slots = min(window, cache_len) if window > 0 else cache_len
+    dt = dtype or cfg.kv_cache_dtype or cfg.dtype
+    shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full((slots,), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def attn_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
+                 window: int = 0):
+    """Full-sequence attention that also materializes the KV cache:
+    ring caches keep the last ``window`` tokens at slot ``pos % window``,
+    full caches are right-padded to ``cache_len`` slots."""
+    b, s, _ = x.shape
+    y, (k, v) = _attn_full(params, x, cfg, window)
+    cache = attn_cache_init(cfg, b, cache_len, x.device, window)
+    slots = cache["k"].shape[1]
+    take = min(s, slots)
+    src = torch.arange(take, device=x.device) + (s - take)
+    dst = src % slots if window > 0 else src
+    cache["k"][:, dst] = k[:, s - take:].to(cache["k"].dtype)
+    cache["v"][:, dst] = v[:, s - take:].to(cache["v"].dtype)
+    cache["pos"][dst] = src.to(torch.int32)
+    return y, cache
+
+
+def attn_decode(params, x, cache, pos: int, cfg: ModelConfig, *,
+                window: int = 0):
+    """x (B, 1, d): the new token at absolute position ``pos``.  Writes
+    its K/V into ``cache`` in place and returns (y, cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(params, x, cfg, positions)
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slots = ck.shape[1]
+    slot = pos % slots if window > 0 else min(pos, slots - 1)
+    ck[:, slot] = k[:, 0].to(ck.dtype)
+    cv[:, slot] = v[:, 0].to(cv.dtype)
+    cpos[slot:slot + 1].fill_(pos)
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window > 0:
+        valid = valid & (pos - cpos < window)
+    out = _attend(q, ck.to(q.dtype), cv.to(q.dtype),
+                  valid[None, None, None, None, :], cfg)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, cache
+
+
+# ------------------------------------------------------------- gated MLP
+def mlp_init(cfg: ModelConfig, generator, device, d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+
+    def w(shape, scale):
+        return truncated_normal_init(shape, cfg.dtype, scale, generator,
+                                     device)
+
+    return {"w_gate": w((d, ff), d ** -0.5), "w_up": w((d, ff), d ** -0.5),
+            "w_down": w((ff, d), ff ** -0.5)}
+
+
+def mlp_apply(params, x, cfg: ModelConfig):
+    gate = x @ params["w_gate"]
+    # jax.nn.gelu defaults to the tanh approximation
+    act = (F.silu(gate) if cfg.ffn_activation == "silu"
+           else F.gelu(gate, approximate="tanh"))
+    return (act * (x @ params["w_up"])) @ params["w_down"]
+
+
+# ------------------------------------------------------------ embeddings
+def embed_init(cfg: ModelConfig, generator, device):
+    # d^-1/2 table: the sqrt(d) embed multiplier gives unit-scale
+    # activations and tied-unembed logits stay O(1).
+    p = {"table": truncated_normal_init((cfg.vocab_size, cfg.d_model),
+                                        cfg.dtype, cfg.d_model ** -0.5,
+                                        generator, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = truncated_normal_init((cfg.d_model, cfg.vocab_size),
+                                          cfg.dtype, cfg.d_model ** -0.5,
+                                          generator, device)
+    return p
+
+
+def embed_apply(params, tokens: torch.Tensor, cfg: ModelConfig):
+    """Token embeddings times sqrt(d), the factor rounded to the model
+    dtype first, as the reference does."""
+    x = params["table"][tokens]
+    scale = torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x * scale
+
+
+def unembed_apply(params, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["table"])
+    return torch.einsum("bsd,dv->bsv", x, params["head"])

@@ -1,0 +1,243 @@
+"""Serving engine (port of ``repro.serve.engine``): batched prefill +
+autoregressive decode, with fixed-codebook compression accounting on
+the decode-step activations.
+
+In ``bitexact`` mode every decode step runs the paper's single-stage
+wire on its bf16 logits: the byte planes' histograms and coded size
+(``payload_stats``), the chunked encode (kernel B1 → B2 on the card),
+the chunked decode through the spec's backend (B4 for ``multisym``, B3
+for ``scan``) and a mismatch count that must stay 0.  The metrics dict
+has the reference's keys.
+
+Not ported yet (each raises ``NotImplementedError``): ``lifecycle=``
+(ROADMAP A5), ``param_store=`` and ``kv_mode="coded"`` (A7), and
+``ep_degree > 1`` (MoE, A8).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..comm.compression import CompressionSpec, payload_stats
+from ..comm.transport import decode_blocks, encode_planes, wire_factor
+from ..core.codec import get_codec
+from ..core.encoder import DEFAULT_CHUNK, chunk_counts_for, concat_chunks
+from ..device import resolve_device
+from ..models.common import ModelConfig
+from ..models.transformer import decode_step, prefill
+
+__all__ = ["ServeConfig", "Engine", "make_serve_step", "make_activation_probe"]
+
+_SCALARS = ("act_raw_bits", "act_coded_bits", "act_wire_raw_bits",
+            "act_wire_coded_bits", "act_decoded_bits", "act_decode_chunks",
+            "act_decode_mismatch", "moe_wire_raw_bits")
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_cache_len: int
+    temperature: float = 0.0   # 0 → greedy
+    seed: int = 0
+
+
+def _ep_unported(ep_degree: int) -> None:
+    if ep_degree > 1:
+        raise NotImplementedError("ep_degree > 1 (expert-parallel MoE "
+                                  "serving) is not ported yet (ROADMAP.md "
+                                  "A8)")
+
+
+def make_activation_probe(comp_spec: Optional[CompressionSpec], *,
+                          decode_chunk: Optional[int] = None,
+                          tp_degree: int = 1):
+    """logits → the decode step's activation metrics (the wire's part of
+    ``make_serve_step``).
+
+    With a spec, metrics carry the bf16 logits' raw and coded bits, the
+    Shannon floor and per-plane histograms, and — for a
+    ``tp_degree``-way link — the all-gather's wire bits.  In
+    ``bitexact`` mode the probe also encodes and decodes the planes at
+    the spec's chunk through the spec's backend, with books rebuilt from
+    the spec's length vectors (what a receiving peer holds), and counts
+    decoded bits, chunks and mismatches.  Metrics are 0-d tensors on the
+    logits' device (float64, exact); nothing here waits for the device.
+    """
+    if decode_chunk is None:
+        decode_chunk = (comp_spec.chunk if comp_spec is not None
+                        else DEFAULT_CHUNK)
+    books = None
+    if (comp_spec is not None and comp_spec.enabled
+            and comp_spec.mode == "bitexact"):
+        codec = get_codec(comp_spec.codec)
+        books = {plane: codec.book_from_lengths(
+                     np.asarray(lens, dtype=np.int32),
+                     key=(comp_spec.tensor_kind, comp_spec.scheme_name,
+                          plane))
+                 for plane, lens in comp_spec.plane_lengths}
+    counts_cache: Dict[Tuple[int, str], torch.Tensor] = {}
+
+    def chunk_counts(n: int, device) -> torch.Tensor:
+        key = (n, str(device))
+        if key not in counts_cache:
+            counts_cache[key] = torch.from_numpy(
+                chunk_counts_for(n, decode_chunk)).to(device)
+        return counts_cache[key]
+
+    def probe(logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        z = torch.zeros((), dtype=torch.float64, device=logits.device)
+        metrics = {k: z for k in _SCALARS}
+        if comp_spec is None or not comp_spec.enabled:
+            return metrics
+        h = logits.to(torch.bfloat16)
+        s = payload_stats(h, comp_spec, with_hists=True)
+        metrics["act_raw_bits"] = s["raw_bits"]
+        metrics["act_coded_bits"] = s["coded_bits"]
+        metrics["act_shannon_bits"] = s["shannon_bits"]
+        metrics["book_epoch"] = z + float(comp_spec.book_epoch)
+        for plane in comp_spec.scheme.planes:
+            metrics[f"act_hist_{plane}"] = s[f"hist_{plane}"]
+        if tp_degree > 1:
+            factor = wire_factor("all_gather", tp_degree)
+            metrics["act_wire_raw_bits"] = factor * s["raw_bits"]
+            metrics["act_wire_coded_bits"] = factor * s["coded_bits"]
+        if books is not None:
+            enc = encode_planes(h, books, comp_spec.scheme_name,
+                                chunk=decode_chunk)
+            decoded = torch.zeros((), dtype=torch.int64, device=h.device)
+            mismatch = torch.zeros((), dtype=torch.int64, device=h.device)
+            n_chunks = 0
+            for plane, (words, bits, sym) in enc.items():
+                n = int(sym.shape[0])
+                out = decode_blocks(words, chunk_counts(n, h.device),
+                                    books[plane], decode_chunk,
+                                    comp_spec.decode_backend)
+                dec = concat_chunks(out, chunk_counts_for(n, decode_chunk))
+                decoded = decoded + bits.to(torch.int64).sum()
+                mismatch = mismatch + (dec != sym).sum()
+                n_chunks += words.shape[0]
+            metrics["act_decoded_bits"] = decoded.to(torch.float64)
+            metrics["act_decode_chunks"] = z + float(n_chunks)
+            metrics["act_decode_mismatch"] = mismatch.to(torch.float64)
+        return metrics
+
+    return probe
+
+
+def make_serve_step(model_cfg: ModelConfig,
+                    comp_spec: Optional[CompressionSpec] = None, *,
+                    decode_chunk: Optional[int] = None, tp_degree: int = 1,
+                    ep_degree: int = 1):
+    """(params, tokens (B,1), caches, pos) → (logits, caches, metrics):
+    one decode step, then ``make_activation_probe``'s metrics of its
+    logits."""
+    _ep_unported(ep_degree)
+    probe = make_activation_probe(comp_spec, decode_chunk=decode_chunk,
+                                  tp_degree=tp_degree)
+
+    def step(params, tokens, caches, pos: int):
+        logits, caches = decode_step(params, tokens, caches, pos, model_cfg)
+        return logits, caches, probe(logits)
+
+    return step
+
+
+class Engine:
+    """Batched-request engine over the port's model functions.
+
+    Runs on ``device`` (CUDA unless named); the parameters must already
+    lie there.  ``generate`` takes one host sync per decode step, for the
+    whole metrics dict, and keeps each step's scalar metrics (plus its
+    wall time, ``step_seconds``) in ``step_metrics``.
+    """
+
+    def __init__(self, params, model_cfg: ModelConfig, serve_cfg: ServeConfig,
+                 comp_spec: Optional[CompressionSpec] = None,
+                 tp_degree: int = 1, ep_degree: int = 1,
+                 lifecycle=None, param_store=None, kv_mode: str = "raw", device=None):
+        if lifecycle is not None:
+            raise NotImplementedError("lifecycle= (book hot-refresh) is not "
+                                      "ported yet (ROADMAP.md A5)")
+        if param_store is not None:
+            raise NotImplementedError("param_store= (coded parameters) is "
+                                      "not ported yet (ROADMAP.md A7)")
+        if kv_mode not in ("raw", "coded"):
+            raise ValueError(f"kv_mode must be 'raw' or 'coded', "
+                             f"got {kv_mode!r}")
+        if kv_mode == "coded":
+            raise NotImplementedError("kv_mode='coded' is not ported yet "
+                                      "(ROADMAP.md A7)")
+        _ep_unported(ep_degree)
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params lie on {table.device}, the engine "
+                             f"runs on {self.device}")
+        self.params = params
+        self.cfg = model_cfg
+        self.serve = serve_cfg
+        self._spec = comp_spec
+        self._step = make_serve_step(model_cfg, comp_spec,
+                                     tp_degree=tp_degree)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(serve_cfg.seed)
+        self.step_metrics: List[Dict[str, float]] = []
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        last = logits[:, -1]
+        if self.serve.temperature <= 0.0:
+            return torch.argmax(last, dim=-1)[:, None]
+        p = torch.softmax(last.to(torch.float32) / self.serve.temperature,
+                          dim=-1)
+        return torch.multinomial(p, 1, generator=self._gen)
+
+    @torch.no_grad()
+    def generate(self, prompt_tokens, max_new_tokens: int,
+                 prefix_embeds=None) -> Tuple[np.ndarray, Dict[str, float]]:
+        """prompt_tokens: (B, S) ints → (B, max_new_tokens) generated ids
+        and the summed metrics."""
+        if prefix_embeds is not None:
+            raise NotImplementedError("prefix embeddings are not ported yet "
+                                      "(ROADMAP.md A8)")
+        tokens = torch.as_tensor(prompt_tokens).to(device=self.device,
+                                                   dtype=torch.int64)
+        logits, caches = prefill(self.params, {"tokens": tokens}, self.cfg,
+                                 self.serve.max_cache_len)
+        prompt_len = tokens.shape[1]
+        tok = self._sample(logits)
+        out = [tok]
+        totals: Dict[str, float] = {}
+        self.step_metrics = []
+        for i in range(max_new_tokens - 1):
+            t0 = time.perf_counter()
+            logits, caches, m = self._step(self.params, tok, caches,
+                                           prompt_len + i)
+            tok = self._sample(logits)
+            keys = [k for k, v in m.items() if v.dim() == 0]
+            vals = torch.stack([m[k].to(torch.float64) for k in keys])
+            vals = vals.tolist()                # the step's one host sync
+            rec = dict(zip(keys, vals))
+            rec["step_seconds"] = time.perf_counter() - t0
+            self.step_metrics.append(rec)
+            for k, v in zip(keys, vals):
+                if k == "book_epoch":                  # level, not a count
+                    totals[k] = v
+                else:
+                    totals[k] = totals.get(k, 0.0) + v
+            out.append(tok)
+        for k in _SCALARS + ("act_shannon_bits", "book_epoch"):
+            totals.setdefault(k, 0.0)          # stable for 1-token gens
+        totals.update(self.hbm_stats())
+        return torch.cat(out, dim=1).cpu().numpy(), totals
+
+    def hbm_stats(self) -> Dict[str, float]:
+        """The compressed-at-rest HBM ledger of the reference: zeros here,
+        where parameters and KV caches are held raw."""
+        stats = dict.fromkeys(("param_hbm_raw_bits", "param_hbm_coded_bits",
+                               "kv_hbm_raw_bits", "kv_hbm_coded_bits",
+                               "hbm_raw_bits", "hbm_coded_bits",
+                               "hbm_effective_bandwidth_x"), 0.0)
+        return stats
