@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. device — require CUDA; print the card's name and power limit
    (``nvidia-smi``) and the torch version;
-2. build  — compile the four hand-written kernels (``csrc/*.cu``, one
-   ``nvcc`` per source, all at once) and print the build seconds;
+2. build  — compile the eight hand-written kernels (five sources in
+   ``csrc/*.cu``, one ``nvcc`` per source, all at once) and print the
+   build seconds;
 3. kernels against their plain-torch versions, bit for bit, at the main
    path's shapes: the 1 024 000 symbols per byte plane of a batch-4
    ``gemma2-2b`` decode step (real logits of the warm-up prefill), plus
@@ -16,21 +17,38 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    with CUDA events beside its plain version (and, for B1, the one-call
    gather ``lut[sym]`` as a yardstick the port never calls).  A chain
    probe (one thread, dependent shared-memory table lookups) measures
-   the least time of one decode step, which bounds B3 and B4;
+   the least time of one decode step, which bounds B3, B4 and B6-B8.
+   The same for B5-B8 ("kernels vs plain (B5-B8)"): B5 (histogram) on
+   the logits planes and on ``w_gate[0]``'s hi plane (33.5 M symbols),
+   B6 (QLC decode) at chunk 2048 on the logits planes with QLC books from
+   the same logits, B7/B8 (fused decode + matmul, Huffman / QLC) on three
+   layer-0 matrices at full width (``w_down[0]`` at chunk 4096,
+   ``w_gate[0]`` at chunk 16384, ``wo[0]`` as 2048 x 2048 at chunk 4096)
+   with x = (4, K) bf16, the decode batch: decoded tiles bit for bit, the
+   product within ``MATMUL_TOL`` of the plain version, and
+   ``torch.matmul`` of the raw weight timed as the yardstick;
 4. serve ``gemma2-2b`` at full width: bf16 weights from a seeded
    generator, a warm-up prefill of 4 prompts x 64 tokens whose logits'
    byte-plane histograms build the books, then ``Engine.generate`` on 4
    new prompts x 64 tokens for 32 new tokens with a bitexact chunked spec,
    once with the ``multisym`` decode backend (kernel B4) and once with
    ``scan`` (kernel B3).  Every step must decode losslessly, code 2 x 500
-   chunks, carry B2 chunk bits equal to histogram . lengths, and the
+   chunks, carry B2 chunk bits equal to histogram (B5) . lengths, and the
    kernels' launch counters must show the path ran through them;
-5. the last lines: one ``{"kernels": [...]}`` record, then
+5. coded-at-rest serve (``repro_torch.launch.dryrun.memstore_check`` at
+   full width), under Huffman and QLC: the whole tree coded into a
+   ``CompressedParamStore`` on the card, materialized bit for bit, the
+   prompt's prefill cache through a ``CodedKVStore`` bit for bit, a decode
+   step on it with bit-identical logits, and ``Engine(param_store=...,
+   kv_mode="coded")`` generating the raw engine's 32 x 4 tokens; with its
+   own launch counts (B1, B2, B4-B8 must all run);
+6. the last lines: one ``{"kernels": [...]}`` record (B1-B8), then
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
-busy time per step, the idle share and the top kernels.
+busy time per step, the idle share, the top kernels and the port's own
+kernels (B1-B5 on this path) per step.
 
 It needs a checkout of this repository around it (it imports
 ``src/repro_torch``) and a CUDA device; without either it exits non-zero
@@ -49,6 +67,11 @@ BATCH, PROMPT, NEW = 4, 64, 32
 CHUNK, ODD_CHUNK = 2048, 1001
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 INT32_LANES_PER_SM = 64          # Hopper SM: 4 partitions x 16 INT32 lanes
+BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+# B7/B8 against their plain versions: 0.  Both add the same exact
+# float32 products (bf16 x bf16) in one fixed order with separate
+# multiplies and adds, so any difference is a fault, not rounding.
+MATMUL_TOL = 0.0
 
 # The chain probe: one thread walks ``steps`` dependent lookups of the
 # form a decoder's step takes at the least (shift, mask, shared-memory
@@ -143,6 +166,7 @@ def main() -> int:
                                           chunk_counts_for, concat_chunks)
     from repro_torch.core.symbols import SCHEMES
     from repro_torch.kernels import bitpack, build, decode, encode
+    from repro_torch.launch.dryrun import memstore_check
     from repro_torch.models import (decode_step, forward, model_init,
                                     param_count, prefill)
     from repro_torch.serve import Engine, ServeConfig
@@ -314,6 +338,19 @@ def main() -> int:
     step_ns = chain_step_ns(torch, probe, dev)
     print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
 
+    phase("kernels vs plain (B5-B8)")
+    t0 = time.perf_counter()
+    new_kernels = check_b5_to_b8(torch, dev, params, step_logits,
+                                 int_ops_per_s, step_ns)
+    for k, r in new_kernels.items():
+        print(f"{k}: mismatches {r['mismatches']}, max abs err "
+              f"{r['max_abs_err']}, {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.5f} by "
+              f"{r['bound_by']}) [{card}]")
+        need(r["mismatches"] == 0, f"kernel {k} disagrees with its plain "
+             f"version: {r['mismatches']} mismatching elements")
+    print(f"B5-B8 phase: {time.perf_counter() - t0:.1f} s")
+
     # ---------------------------------------------- 4b. serve at full width
     phase("serve gemma2-2b (bitexact wire)")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
@@ -349,7 +386,8 @@ def main() -> int:
             need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
                  f"{backend} step {i}: B2 bits {m['act_decoded_bits']} != "
                  f"histogram . lengths {m['act_coded_bits']}")
-        for k in ("encode_lookup", "pack_blocks", expect_kernel[backend]):
+        for k in ("encode_lookup", "pack_blocks", "histogram256",
+                  expect_kernel[backend]):
             need(grew[k] > 0, f"{backend}: kernel {k} was not launched")
         step_s = sorted(m["step_seconds"] for m in steps)
         med = step_s[len(step_s) // 2]
@@ -399,6 +437,33 @@ def main() -> int:
          f"decode step vs forward: rel err {rel}")
     print(f"decode step vs full forward (bf16, full width): max rel err {rel}")
 
+    # ---------------------------------- 5. coded-at-rest serve (B1-B8)
+    phase("coded-at-rest serve (huffman, qlc)")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()                  # this path's count starts
+    coded = memstore_check(cfg, params, device=dev, batch=BATCH,
+                           prompt_len=PROMPT, new_tokens=NEW)
+    coded_launches = dict(build.LAUNCHES)   # read right after the path
+    coded["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"card": card, "coded_at_rest": coded}))
+    need(coded["status"] == "ok", "coded-at-rest serve: a check failed "
+         "(see the record above)")
+    for codec in ("huffman", "qlc"):
+        r = coded[codec]
+        need(r["coded_steps"] == NEW - 1, f"{codec}: {r['coded_steps']} "
+             f"coded decode steps")
+        print(f"{codec}: param ratio {r['param_hbm_ratio']:.4f}, kv ratio "
+              f"{r['kv_hbm_ratio']:.4f}, coded step "
+              f"{r['coded_step_ms_median']:.3f} ms (median), one step "
+              f"{r['one_coded_step']} [{card}]")
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym", "decode_chunks_qlc", "decode_matmul",
+              "decode_matmul_qlc"):
+        need(coded_launches[k] > 0, f"coded-at-rest serve: kernel {k} was "
+             f"not launched")
+    print(f"coded-at-rest launches {coded_launches}, peak memory "
+          f"{coded['peak_memory_gb']:.2f} GB [{card}]")
+
     if "--profile" in sys.argv[1:]:
         phase("profile (torch.profiler, device timeline)")
         prof = {k: profile_steps(torch, params, cfg, prompts, spec)
@@ -423,18 +488,226 @@ def main() -> int:
         bound_s, bound_by, extra = bounds[k]
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces,
+            "launches": launches[k] + coded_launches[k],
+            "launches_by_path": {"wire_serve": launches[k],
+                                 "coded_at_rest": coded_launches[k]},
             "mismatches": stats[k]["mismatches"],
             "max_abs_err": stats[k]["max_abs_err"],
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "library_ms": lib_ms, **extra})
+    new_meta = {
+        "histogram256": ("B5", "histogram.cu",
+                         "src/repro/kernels/histogram.py:47"),
+        "decode_chunks_qlc": ("B6", "decode.cu",
+                              "src/repro/kernels/decode.py:333"),
+        "decode_matmul": ("B7", "decode_matmul.cu",
+                          "src/repro/kernels/decode_matmul.py:203"),
+        "decode_matmul_qlc": ("B8", "decode_matmul.cu",
+                              "src/repro/kernels/decode_matmul.py:264"),
+    }
+    for k, (tag, src, replaces) in new_meta.items():
+        r = dict(new_kernels[k])
+        kernels.append({
+            "name": f"{tag} {k}", "route": "cuda", "source": source + src,
+            "replaces": replaces,
+            "launches": launches[k] + coded_launches[k],
+            "launches_by_path": {"wire_serve": launches[k],
+                                 "coded_at_rest": coded_launches[k]},
+            **r})
     print(json.dumps({"card": card, "serve": runs}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def timed_once(torch, fn):
+    """(result, device ms) of one call of ``fn``, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def least_ms(nbytes, int_ops, int_ops_per_s, flops=0.0):
+    """(bound ms, by): the larger of bytes over the HBM rate and the
+    operations over the card's peak rates (INT32 lanes, bf16 tensor
+    cores for products of bf16 inputs)."""
+    tb = nbytes / HBM_BYTES_PER_S
+    to = int_ops / int_ops_per_s + flops / BF16_FLOP_PER_S
+    return (tb * 1e3, "bytes") if tb >= to else (to * 1e3, "operations")
+
+
+def used_words(bits):
+    """Words a decoder must read: each chunk's payload plus its pad."""
+    return int(((bits.long() + 31) // 32 + 1).sum())
+
+
+def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
+                   step_ns):
+    """B5-B8 against their plain versions at the main path's shapes (see
+    the module docstring), each timed by CUDA events beside its plain
+    version and its yardstick.  Returns kernel -> its record fields."""
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import chunk_counts_for, concat_chunks
+    from repro_torch.core.qlc import qlc_kernel_args
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
+    from repro_torch.kernels import decode, histogram, ops
+    from repro_torch.kernels import decode_matmul as dm
+    from repro_torch.memstore import CompressedParamStore
+
+    out = {}
+    planes = SCHEMES["bf16"].to_symbols(step_logits)
+    layer0 = params["groups"][0][0]
+    w_gate0 = layer0["ffn"]["w_gate"][0]
+
+    # ---- B5: exact 256-bin counts
+    cases = dict(planes)
+    cases["w_gate[0] hi"] = bf16_planes(w_gate0)["hi"]
+    bad = err = 0
+    for tag, sym in cases.items():
+        got, want = histogram.histogram256(sym), histogram.histogram256_plain(
+            sym)
+        d = (got - want).abs()
+        bad += int((d != 0).sum())
+        err = max(err, int(d.max()))
+        need(int(got.sum()) == sym.numel(), f"B5 {tag}: counts sum "
+             f"{int(got.sum())} != {sym.numel()}")
+    each = list(planes.values())
+    n = each[0].numel()
+    ms = cuda_ms(torch, lambda: [histogram.histogram256(s) for s in each],
+                 50) / 2
+    plain_ms = cuda_ms(torch, lambda: [histogram.histogram256_plain(s)
+                                       for s in each], 20) / 2
+    lib_ms = cuda_ms(torch, lambda: [torch.bincount(s, minlength=256)
+                                     for s in each], 50) / 2
+    gate_hi = cases["w_gate[0] hi"]
+    gate_ms = cuda_ms(torch, lambda: histogram.histogram256(gate_hi), 20)
+    bound, by = least_ms(n + 256 * 8, 2 * n, int_ops_per_s)
+    gate_bound, _ = least_ms(gate_hi.numel() + 256 * 8, 2 * gate_hi.numel(),
+                             int_ops_per_s)
+    out["histogram256"] = {
+        "mismatches": bad, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+        "symbols": n, "w_gate0_hi_symbols": gate_hi.numel(),
+        "w_gate0_hi_ms": gate_ms, "w_gate0_hi_bound_ms": gate_bound}
+
+    # ---- B6: QLC decode at chunk 2048, books from the same logits
+    books = {p: build_codebook(histogram.histogram256(s).cpu().numpy(),
+                               codec="qlc", key=("act", "bf16", p))
+             for p, s in planes.items()}
+    enc = []
+    bad = err = 0
+    for p, sym in planes.items():
+        words, bits = ops.encode_with_book(sym, books[p], chunk=CHUNK)
+        cc = chunk_counts_for(sym.numel(), CHUNK)
+        counts = torch.from_numpy(cc).to(dev)
+        args = qlc_kernel_args(books[p], dev)
+        k6 = decode.decode_chunks_qlc(words, counts, *args, chunk=CHUNK)
+        p6 = decode.decode_chunks_qlc_plain(words, counts, *args, chunk=CHUNK)
+        d = (k6.to(torch.int64) - p6.to(torch.int64)).abs()
+        bad += int((d != 0).sum())
+        err = max(err, int(d.max()))
+        need(torch.equal(concat_chunks(k6, cc), sym), f"B6 {p}: the QLC "
+             f"stream does not round-trip the plane")
+        enc.append((words, counts, args, bits))
+    ms = cuda_ms(torch, lambda: [decode.decode_chunks_qlc(
+        w, c, *a, chunk=CHUNK) for w, c, a, _ in enc], 10) / 2
+    _, plain_ms = timed_once(torch, lambda: [decode.decode_chunks_qlc_plain(
+        w, c, *a, chunk=CHUNK) for w, c, a, _ in enc])
+    nb = enc[0][0].shape[0]
+    words_read = sum(used_words(b) for *_, b in enc) / 2
+    bound, by = least_ms(words_read * 4 + nb * 4 + 256 * 4 + nb * CHUNK * 4,
+                         16 * n, int_ops_per_s)
+    out["decode_chunks_qlc"] = {
+        "mismatches": bad, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms / 2, "bound_ms": bound, "bound_by": by,
+        "library_ms": None, "chain_steps_per_chunk": CHUNK,
+        "chain_step_ns": step_ns, "chain_bound_ms": CHUNK * step_ns * 1e-6,
+        "symbols": n, "chunks": nb,
+        "qlc_class_lengths": {p: b.class_lengths for p, b in books.items()}}
+
+    # ---- B7 / B8: fused decode + matmul on three layer-0 matrices
+    d_model = w_gate0.shape[0]
+    mats = {"w_down[0]": (layer0["ffn"]["w_down"][0], 4096),
+            "w_gate[0]": (w_gate0, 16384),
+            "wo[0]": (layer0["mixer"]["wo"][0].reshape(-1, d_model), 4096)}
+    gen = torch.Generator().manual_seed(SEED + 1)
+    xs = {tag: torch.randn((BATCH, w.shape[0]), generator=gen).to(
+              torch.bfloat16).to(dev) for tag, (w, _) in mats.items()}
+    for codec, kname, kern, plain in (
+            ("huffman", "decode_matmul", dm.decode_matmul,
+             dm.decode_matmul_plain),
+            ("qlc", "decode_matmul_qlc", dm.decode_matmul_qlc,
+             dm.decode_matmul_qlc_plain)):
+        rec = {"mismatches": 0, "max_abs_err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "chain_bound_ms": 0.0, "chain_step_ns": step_ns,
+               "tolerance": MATMUL_TOL, "by_matrix": {}}
+        for tag, (w, chunk) in mats.items():
+            k_rows, n_cols = w.shape
+            x = xs[tag]
+            st = CompressedParamStore.from_tree({"w": w}, codec=codec,
+                                                chunk=chunk, min_size=1,
+                                                device=dev)
+            lo, hi, counts = st.plane_blocks("w")
+            tabs = ops.decode_matmul_tables(st.books, dev)
+            kw = dict(chunk=chunk, n_cols=n_cols)
+            y, tiles = kern(x, lo, hi, counts, *tabs, tiles=True, **kw)
+            (yp, tp), p_ms = timed_once(torch, lambda: plain(
+                x, lo, hi, counts, *tabs, tiles=True, **kw))
+            t_bad = int((tiles.view(torch.int16)
+                         != tp.view(torch.int16)).sum())
+            need(torch.equal(tiles.reshape(-1)[:w.numel()].view(torch.int16),
+                             w.reshape(-1).view(torch.int16)),
+                 f"{kname} {tag}: decoded tiles are not the weight")
+            y_err = float((y - yp).abs().max())
+            need(y_err <= MATMUL_TOL, f"{kname} {tag}: product differs "
+                 f"from the plain version by {y_err} > {MATMUL_TOL}")
+            dense = (x.float() @ w.float())
+            rel = float((y - dense).abs().max() / dense.abs().max())
+            need(rel < 1e-4, f"{kname} {tag}: product vs dense rel err {rel}")
+            k_ms = cuda_ms(torch, lambda: kern(x, lo, hi, counts, *tabs,
+                                               **kw), 10)
+            lib = cuda_ms(torch, lambda: x @ w, 50)
+            lo_bits = torch.from_numpy(st.entries["w"].planes["lo"]
+                                       .bit_counts)
+            hi_bits = torch.from_numpy(st.entries["w"].planes["hi"]
+                                       .bit_counts)
+            nb = lo.shape[0]
+            nbytes = (x.numel() * 2 + 4 * (used_words(lo_bits)
+                                           + used_words(hi_bits))
+                      + nb * 4 + 2 * (3 * 17 + 256) * 4
+                      + BATCH * n_cols * 4)
+            bound, by = least_ms(nbytes, 2 * 16 * w.numel(), int_ops_per_s,
+                                 flops=2.0 * BATCH * w.numel())
+            chain = chunk * step_ns * 1e-6
+            rec["mismatches"] += t_bad
+            rec["max_abs_err"] = max(rec["max_abs_err"], y_err)
+            rec["ms"] += k_ms
+            rec["plain_ms"] += p_ms
+            rec["bound_ms"] += bound
+            rec["library_ms"] += lib
+            rec["chain_bound_ms"] += chain
+            rec["by_matrix"][tag] = {
+                "shape": [k_rows, n_cols], "chunk": chunk, "chunks": nb,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                "bound_by": by, "chain_bound_ms": chain, "library_ms": lib,
+                "tile_mismatches": t_bad, "max_abs_err": y_err,
+                "rel_err_vs_dense": rel,
+                "coded_ratio": st.footprint()["ratio"]}
+            del st, lo, hi, y, tiles, yp, tp
+        rec["bound_by"] = max(rec["by_matrix"].values(),
+                              key=lambda r: r["bound_ms"])["bound_by"]
+        out[kname] = rec
+    return out
 
 
 def step_without_sync(torch, params, cfg, prompts, spec) -> None:
@@ -499,11 +772,15 @@ def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
     busy_ms = sum(kern.values()) / 1e3 / steps
     wall_ms = wall * 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
+    # the port's own kernels (csrc/*.cu keep them in anonymous namespaces)
+    port = {k.split("::")[1].split("(")[0]: v / 1e3 / steps
+            for k, v in kern.items() if k.startswith("(anonymous namespace)")}
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
-                                        for k, v in top}}
+                                        for k, v in top},
+            "port_kernels_ms_per_step": port}
 
 
 def start_chain_probe(build):

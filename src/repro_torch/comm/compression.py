@@ -22,6 +22,10 @@ import torch
 from ..core.codebook import Codebook, CodebookRegistry
 from ..core.encoder import DEFAULT_CHUNK
 from ..core.symbols import SCHEMES, SymbolScheme
+# The ledger's exact 256-bin histogram (the reference's
+# ``histogram256_xla``): kernel B5 on the card, with no host sync inside
+# a decode step.
+from ..kernels.histogram import histogram256
 
 __all__ = ["CompressionSpec", "payload_stats", "histogram256",
            "shannon_bits", "KNOWN_TRANSPORTS"]
@@ -29,17 +33,6 @@ __all__ = ["CompressionSpec", "payload_stats", "histogram256",
 _MODES = ("off", "ledger", "bitexact")
 KNOWN_TRANSPORTS = ("monolithic", "chunked", "ring")
 _CARRIES = ("wire", "f32")
-
-
-def histogram256(sym: torch.Tensor) -> torch.Tensor:
-    """Exact 256-bin histogram (int64) by scatter-add, as the reference's
-    ``histogram256_xla`` computes it in XLA (not Pallas), so a torch op
-    stands here; the Pallas histogram kernel (B5) is still to port.
-    Not ``torch.bincount``: on CUDA it reads the input's maximum back to
-    the host, a sync inside every decode step."""
-    idx = sym.reshape(-1).to(torch.int64)
-    hist = torch.zeros(256, dtype=torch.int64, device=idx.device)
-    return hist.scatter_add_(0, idx, torch.ones_like(idx))
 
 
 def shannon_bits(hist: torch.Tensor) -> torch.Tensor:

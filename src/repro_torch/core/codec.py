@@ -1,9 +1,9 @@
-"""Codec registry (port of ``repro.core.codec``), Huffman only so far.
+"""Codec registry (port of ``repro.core.codec``): Huffman and QLC.
 
 A ``Codec`` is one entropy-coding strategy for the 256-symbol planes:
 how a histogram becomes a book, how a book is rebuilt from its
 wire-portable lengths vector, and which decode backends read its
-streams.  QLC (the reference's second codec) waits for ROADMAP A6.
+streams.
 
 Backend names are the reference's, so a spec written for the JAX
 package carries over unchanged.  The **name** picks the algorithm and
@@ -14,6 +14,11 @@ the **device** of the words picks plain torch or the CUDA kernel:
   multisym_pallas   (``encoder.decode_chunks_multisym``)
   scan, pallas      canonical walk                        kernel B3
                     (``encoder.decode_chunks``)
+
+and for QLC (``core.qlc``):
+
+  scan, pallas      the table-free QLC walk               kernel B6
+                    (``qlc.decode_chunks_qlc``)
 
 On the card every name runs a kernel; there is no fallback to the
 plain versions there.
@@ -27,8 +32,9 @@ import torch
 
 from .huffman import MAX_CODE_LEN
 
-__all__ = ["Codec", "HuffmanCodec", "CODECS", "register_codec",
-           "get_codec", "codec_for_book", "default_codec"]
+__all__ = ["Codec", "HuffmanCodec", "QLCCodec", "CODECS", "register_codec",
+           "get_codec", "codec_for_book", "default_codec",
+           "set_default_codec"]
 
 
 class Codec:
@@ -95,10 +101,24 @@ def codec_for_book(book) -> Codec:
     return get_codec(getattr(book, "codec_name", "huffman"))
 
 
+_DEFAULT_CODEC = "huffman"
+
+
 def default_codec() -> str:
-    """The codec name that ``"auto"`` / ``None`` selections resolve to:
-    Huffman, the one codec ported so far."""
-    return "huffman"
+    """The codec name that ``"auto"`` / ``None`` selections resolve to."""
+    return _DEFAULT_CODEC
+
+
+def set_default_codec(name: str) -> str:
+    """Retarget the process-wide default codec; returns the previous one.
+
+    Production code selects a codec explicitly (``CompressionSpec.codec``,
+    ``codec=`` arguments); this is how a whole run is retargeted."""
+    global _DEFAULT_CODEC
+    get_codec(name)                      # validate before swapping
+    prev = _DEFAULT_CODEC
+    _DEFAULT_CODEC = name
+    return prev
 
 
 @register_codec
@@ -134,3 +154,34 @@ class HuffmanCodec(Codec):
         if self.resolve_backend(backend) in ("scan", "pallas"):
             return ops.decode_chunks(words, counts, book, chunk=chunk)
         return ops.decode_chunks_multisym(words, counts, book, chunk=chunk)
+
+
+@register_codec
+class QLCCodec(Codec):
+    """Quad Length Codes: four lengths, 2-leading-bit class, no tables.
+
+    Length assignment is the exhaustive search over the feasible
+    non-decreasing 4-tuples (``core.qlc.build_qlc_book``); both backend
+    names decode by the table-free walk (kernel B6 on the card)."""
+
+    name = "qlc"
+    backends = ("scan", "pallas")
+    default_backend = "scan"
+
+    def build_book(self, counts, *, book_id=-1, key=("", "", ""),
+                   max_len=MAX_CODE_LEN, floor=1, n_symbols=None):
+        from .qlc import build_qlc_book
+        return build_qlc_book(counts, book_id=book_id, key=tuple(key),
+                              max_len=max_len, floor=floor,
+                              n_symbols=n_symbols)
+
+    def book_from_lengths(self, lengths, *, book_id=-1, key=("", "", ""),
+                          max_len=MAX_CODE_LEN):
+        from .qlc import qlc_book_from_lengths
+        return qlc_book_from_lengths(lengths, book_id=book_id,
+                                     key=tuple(key), max_len=max_len)
+
+    def decode_blocks(self, words, counts, book, chunk, backend):
+        from ..kernels import ops
+        self.resolve_backend(backend)
+        return ops.decode_chunks_qlc(words, counts, book, chunk=chunk)

@@ -22,7 +22,12 @@ the oracles the CUDA kernels are held to on the card:
   decode_chunks_multisym  — the K-bit window-LUT multisym decode
       (``decode_chunks_multisym_jit``, by B4's algorithm).
 
-Both decoders are loops over output slots, vectorised across chunks.
+Both decoders take each step's code from the window at its cursor, as
+the kernels do.  They first resolve every 16-bit window once (a 2^16
+table) and find the code length at every bit position of a chunk, all
+at once, and then walk the chain of code starts with one gather a step
+(``_walk_positions``, which jumps on long chunks), where a step of a loop
+that searched at the cursor took some thirty tensor operations.
 The entry points ``encode_chunked`` / ``decode_chunked`` /
 ``decode_dispatch`` go through ``repro_torch.kernels``, whose wrappers
 launch the CUDA kernels for tensors on the card and run these plain
@@ -43,7 +48,8 @@ from .huffman import MAX_CODE_LEN
 __all__ = [
     "DEFAULT_CHUNK", "ChunkedStream",
     "chunk_capacity_words", "chunk_counts_for", "concat_chunks",
-    "u32_values", "window32", "canonical_first_code",
+    "u32_values", "walk_symbols", "canonical_first_code",
+    "canonical_window_tables",
     "pack_rows", "encode_chunked_rows", "recode_chunks",
     "decode_chunks", "decode_chunks_multisym",
     "encode_chunked", "decode_chunked", "decode_dispatch",
@@ -175,17 +181,87 @@ def recode_chunks(sym_blocks: torch.Tensor, chunk_counts: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Decoders: loops over output slots, every chunk advancing in lockstep
+# Decoders: the walk of each chunk, one gather a step
 # --------------------------------------------------------------------------
-def window32(w: torch.Tensor, bit_pos: torch.Tensor, cap: int
-              ) -> torch.Tensor:
-    """The 32 stream bits at each row's cursor (w: unsigned words as
-    int64, bit_pos (NB,) int64); the fetch clamps to words cap-2, cap-1."""
-    widx = torch.clamp(bit_pos >> 5, max=cap - 2)
-    pin = bit_pos & 31
-    w0 = w.gather(1, widx[:, None])[:, 0]
-    w1 = w.gather(1, widx[:, None] + 1)[:, 0]
-    return ((w0 << pin) | (w1 >> (32 - pin))) & _U32
+# Bit positions of a chunk at which a code may start: every payload bit
+# lies below chunk * max_len <= 32 * (cap - 1), and a window read there
+# never reaches the ``cap - 2`` clamp of the reference's two-word fetch.
+# Rows are walked in batches of at most this many positions, and a walk
+# takes at most this many dependent steps (longer chunks jump).
+_WALK_POSITIONS = 1 << 24
+_WALK_STEPS = 4096
+
+
+def _windows_at_every_bit(w: torch.Tensor) -> torch.Tensor:
+    """(NB, cap) unsigned words as int64 → (NB, 32 * (cap - 1)): the 16
+    stream bits starting at every bit position a code may start at.
+    Each half-word h of a row, with the half after it, holds 32 stream
+    bits; the window at bit 16 h + j is their top 16 bits after j."""
+    halves = torch.stack([w >> 16, w & 0xFFFF], dim=2).reshape(
+        w.shape[0], -1)                                   # (NB, 2 cap)
+    pairs = (halves[:, :-2] << 16) | halves[:, 1:-1]      # (NB, 2 cap - 2)
+    shift = 16 - torch.arange(16, device=w.device)
+    return ((pairs[:, :, None] >> shift) & 0xFFFF).reshape(w.shape[0], -1)
+
+
+def _walk_positions(advance: torch.Tensor, steps: int) -> torch.Tensor:
+    """The start positions of the first ``steps`` codes of every row,
+    given each bit position's code length ``advance`` (NB, P) int64:
+    s_0 = 0, s_{k+1} = s_k + advance[s_k], every row in lockstep, one
+    gather a step.  A walk longer than ``_WALK_STEPS`` first squares the
+    jump table (J_2 = J ∘ J, …) until 2^d-code jumps bring it under, takes
+    those, then fills in the codes between them all at once: 2^d − 1
+    gathers over every jump's start.  Jumps clamp at P - 1: only
+    positions past a row's last code reach it."""
+    nb, n_pos = advance.shape
+    nxt = torch.clamp(torch.arange(n_pos, device=advance.device)[None, :]
+                      + advance, max=n_pos - 1)
+    jump, span = nxt, 1
+    while -(-steps // span) > _WALK_STEPS:
+        jump, span = jump.gather(1, jump), 2 * span
+    n_jumps = -(-steps // span)
+    pos = torch.zeros((nb, span, n_jumps), dtype=torch.int64,
+                      device=advance.device)
+    for m in range(1, n_jumps):
+        pos[:, 0, m:m + 1] = jump.gather(1, pos[:, 0, m - 1:m])
+    for j in range(1, span):
+        pos[:, j] = nxt.gather(1, pos[:, j - 1])
+    return pos.transpose(1, 2).reshape(nb, -1)[:, :steps]
+
+
+def _row_batches(nb: int, cap: int):
+    per = max(1, _WALK_POSITIONS // (32 * max(cap - 1, 1)))
+    return [(r, min(r + per, nb)) for r in range(0, nb, per)]
+
+
+def _walk_windows(block_words: torch.Tensor, chunk: int,
+                  advance16: torch.Tensor):
+    """Walk every chunk: yields (first row, last row + 1, the 16-bit
+    windows at each row's first ``chunk`` code starts) per batch of rows.
+    ``advance16`` (2^16,) int64 maps a window to the bits its step
+    consumes."""
+    nb, cap = block_words.shape
+    for a, b in _row_batches(nb, cap):
+        win = _windows_at_every_bit(u32_values(block_words[a:b]))
+        pos = _walk_positions(advance16[win], chunk)
+        yield a, b, win.gather(1, pos)
+
+
+def walk_symbols(block_words: torch.Tensor, chunk_counts: torch.Tensor,
+                 chunk: int, advance16: torch.Tensor, symbol_at
+                 ) -> torch.Tensor:
+    """The walk of a one-symbol-a-step decoder over every chunk: each
+    step reads the 16-bit window at its cursor, emits ``symbol_at`` of it
+    and advances by ``advance16`` of it.  block_words (NB, cap) int32,
+    chunk_counts (NB,) → (NB, chunk) int32, zero past each count."""
+    nb = block_words.shape[0]
+    dev = block_words.device
+    out = torch.zeros((nb, chunk), dtype=torch.int32, device=dev)
+    live = (torch.arange(chunk, device=dev)[None, :]
+            < chunk_counts.to(torch.int64)[:, None])
+    for a, b, win in _walk_windows(block_words, chunk, advance16):
+        out[a:b] = torch.where(live[a:b], symbol_at(win), 0).to(torch.int32)
+    return out
 
 
 def canonical_first_code(window: torch.Tensor, fc: torch.Tensor,
@@ -193,7 +269,7 @@ def canonical_first_code(window: torch.Tensor, fc: torch.Tensor,
                          ss: torch.Tensor, ls: torch.Tensor, max_len: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Canonical-prefix search over candidate lengths ``ls`` for the
-    ``max_len``-bit windows (NB,): (length, symbol) of each window's
+    ``max_len``-bit windows (N,): (length, symbol) of each window's
     first code — the smallest valid length, or ``ls[0]`` if none is."""
     cand = window[:, None] >> (max_len - ls)[None, :]
     off = cand - fc[ls][None, :]
@@ -205,34 +281,36 @@ def canonical_first_code(window: torch.Tensor, fc: torch.Tensor,
     return l, sym
 
 
+def canonical_window_tables(tables, lo: int, max_len: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``canonical_first_code`` over lengths lo..max_len for every
+    max_len-bit window: (length, symbol) tables of 2^max_len entries."""
+    fc, bi, nc, ss = (t.to(torch.int64) for t in tables)
+    ls = torch.arange(lo, max_len + 1, device=fc.device)
+    wins = torch.arange(1 << max_len, device=fc.device)
+    return canonical_first_code(wins, fc, bi, nc, ss, ls, max_len)
+
+
 def decode_chunks(block_words: torch.Tensor, chunk_counts: torch.Tensor,
                   first_code: torch.Tensor, base_index: torch.Tensor,
                   num_codes: torch.Tensor, sorted_symbols: torch.Tensor,
                   chunk: int = DEFAULT_CHUNK, max_len: int = MAX_CODE_LEN
                   ) -> torch.Tensor:
-    """Canonical walk over every chunk (reference ``decode_chunks_jit``).
+    """Canonical walk over every chunk (reference ``decode_chunks_jit``,
+    the function of kernel B3).
 
     block_words (NB, cap) int32, chunk_counts (NB,) int32 → (NB, chunk)
-    int32 symbols, zero past each chunk's count.  One step per output
-    slot: read a max_len-bit window at the cursor, find the unique code
-    length, emit ``sorted_symbols[base_index[l] + offset]``, advance.
+    int32 symbols, zero past each chunk's count.  Each step reads a
+    max_len-bit window at the cursor, finds the unique code length,
+    emits ``sorted_symbols[base_index[l] + offset]`` and advances; the
+    steps are taken by ``_walk_positions``, with each window's (length,
+    symbol) from a 2^max_len table of the canonical search.
     """
-    nb, cap = block_words.shape
-    dev = block_words.device
-    w = u32_values(block_words)
-    counts = chunk_counts.to(torch.int64)
-    fc, bi, nc, ss = (t.to(torch.int64) for t in
-                      (first_code, base_index, num_codes, sorted_symbols))
-    ls = torch.arange(1, max_len + 1, device=dev)
-    bit_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
-    out = torch.zeros((nb, chunk), dtype=torch.int32, device=dev)
-    for k in range(chunk):
-        window = window32(w, bit_pos, cap) >> (32 - max_len)
-        l, sym = canonical_first_code(window, fc, bi, nc, ss, ls, max_len)
-        live = k < counts
-        bit_pos = bit_pos + torch.where(live, l, 0)
-        out[:, k] = torch.where(live, sym, 0).to(torch.int32)
-    return out
+    ltab, stab = canonical_window_tables(
+        (first_code, base_index, num_codes, sorted_symbols), 1, max_len)
+    top = torch.arange(1 << 16, device=ltab.device) >> (16 - max_len)
+    return walk_symbols(block_words, chunk_counts, chunk, ltab[top],
+                        lambda win: stab[win >> (16 - max_len)])
 
 
 def decode_chunks_multisym(block_words: torch.Tensor,
@@ -248,51 +326,48 @@ def decode_chunks_multisym(block_words: torch.Tensor,
 
     (NB, cap) int32 words, (NB,) counts, the (2^k, s_max) symbol LUT and
     (2^k,) ``count | bits << 8`` meta, and the canonical tables →
-    (NB, chunk) int32, zero past each count.  Every step, each chunk
-    still short of its count reads its K-bit window, emits the window's
-    symbols (or, for a first code longer than K bits, the canonical
-    walk's one symbol) and advances.
+    (NB, chunk) int32, zero past each count.  Each step reads the K-bit
+    window at the cursor and emits its LUT symbols — or, for a first
+    code longer than K bits, the canonical search's one symbol — and
+    advances by its bits; the steps are taken by ``_walk_positions``
+    (every step emits at least one symbol, so ``chunk`` steps cover a
+    chunk), and each step's symbols land at the running sum of the
+    counts before it.
     """
-    nb, cap = block_words.shape
+    nb = block_words.shape[0]
     dev = block_words.device
     size, s_max = syms.shape
     k = size.bit_length() - 1
-    w = u32_values(block_words)
-    counts = chunk_counts.to(torch.int64)
     stab = syms.to(torch.int64)
     mtab = meta.to(torch.int64)
-    fc, bi, nc, ss = (t.to(torch.int64) for t in
-                      (first_code, base_index, num_codes, sorted_symbols))
-    ls = torch.arange(k + 1, max_len + 1, device=dev)
+    if k < max_len:                 # windows whose first code is longer
+        slow_l, slow_s = canonical_window_tables(
+            (first_code, base_index, num_codes, sorted_symbols), k + 1,
+            max_len)
+    else:                           # every code fits a window: no slow path
+        slow_l = slow_s = torch.zeros(1 << max_len, dtype=torch.int64,
+                                      device=dev)
     js = torch.arange(s_max, device=dev)
-    rows = torch.arange(nb, device=dev)
-    out = torch.zeros((nb, chunk + s_max), dtype=torch.int64, device=dev)
-    bit_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
-    out_pos = torch.zeros(nb, dtype=torch.int64, device=dev)
-    while True:
-        active = out_pos < counts
-        if not bool(active.any()):
-            break
-        win = window32(w, bit_pos, cap)
-        idx = win >> (32 - k)
-        m = mtab[idx]
-        cnt = m & 0xFF
-        adv = (m >> 8) & 0xFF
-        emit = stab[idx]
-        if k < max_len:                                   # slow path
-            l, fsym = canonical_first_code(win >> (32 - max_len), fc, bi,
-                                           nc, ss, ls, max_len)
-            slow = cnt == 0
-            emit = torch.where(slow[:, None],
-                               torch.where(js == 0, fsym[:, None], 0), emit)
-            cnt = torch.where(slow, 1, cnt)
-            adv = torch.where(slow, l, adv)
-        r = rows[active]
-        out[r[:, None], out_pos[active][:, None] + js] = emit[active]
-        out_pos = torch.where(active, out_pos + cnt, out_pos)
-        bit_pos = torch.where(active, bit_pos + adv, bit_pos)
-    o = torch.arange(chunk, device=dev)[None, :]
-    return torch.where(o < counts[:, None], out[:, :chunk], 0).to(torch.int32)
+    w16 = torch.arange(1 << 16, device=dev)
+    m16 = mtab[w16 >> (16 - k)]
+    slow16 = (m16 & 0xFF) == 0
+    advance16 = torch.where(slow16, slow_l[w16 >> (16 - max_len)],
+                            (m16 >> 8) & 0xFF)
+    count16 = torch.where(slow16, 1, m16 & 0xFF)
+
+    out = torch.zeros((nb, chunk), dtype=torch.int32, device=dev)
+    counts = chunk_counts.to(torch.int64)
+    for a, b, win in _walk_windows(block_words, chunk, advance16):
+        cnt, slow = count16[win], slow16[win]
+        emit = torch.where(
+            slow[..., None],
+            torch.where(js == 0, slow_s[win >> (16 - max_len)][..., None], 0),
+            stab[win >> (16 - k)])                          # (rows, chunk, s)
+        dst = (torch.cumsum(cnt, dim=1) - cnt)[..., None] + js
+        keep = (js < cnt[..., None]) & (dst < counts[a:b, None, None])
+        rows = torch.arange(b - a, device=dev)[:, None, None].expand_as(dst)
+        out[a:b][rows[keep], dst[keep]] = emit[keep].to(torch.int32)
+    return out
 
 
 # --------------------------------------------------------------------------

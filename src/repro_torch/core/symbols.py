@@ -21,7 +21,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-__all__ = ["SymbolScheme", "SCHEMES", "bf16_planes", "e4m3_planes"]
+__all__ = ["SymbolScheme", "SCHEMES", "bf16_planes", "bf16_from_planes",
+           "e4m3_planes"]
 
 
 def bf16_planes(x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -29,6 +30,15 @@ def bf16_planes(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     v = x.to(torch.bfloat16).reshape(-1).view(torch.int16)
     return {"lo": (v & 0xFF).to(torch.uint8),
             "hi": ((v >> 8) & 0xFF).to(torch.uint8)}
+
+
+def bf16_from_planes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``bf16_planes``: symbols of the two planes (any
+    integer dtype, values < 256, one shape) → the bfloat16 values
+    ``lo | hi << 8``, bit for bit."""
+    u = lo.to(torch.int32) | (hi.to(torch.int32) << 8)
+    return torch.where(u >= 1 << 15, u - (1 << 16), u).to(
+        torch.int16).view(torch.bfloat16)
 
 
 def e4m3_planes(x: torch.Tensor) -> Dict[str, torch.Tensor]:

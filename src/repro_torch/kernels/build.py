@@ -30,16 +30,18 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 __all__ = ["CSRC", "SOURCES", "LAUNCHES", "reset_launches", "count_launch",
            "build_dir", "nvcc_path", "build_all", "library", "build_logs",
-           "bind", "check", "raise_on", "P", "I", "LL"]
+           "bind", "check", "raise_on", "P", "I", "LL", "U"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("encode", "bitpack", "decode")
+SOURCES = ("encode", "bitpack", "decode", "histogram", "decode_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"encode_lookup": 0, "pack_blocks": 0,
                             "decode_chunks_canonical": 0,
-                            "decode_chunks_multisym": 0}
+                            "decode_chunks_multisym": 0, "histogram256": 0,
+                            "decode_chunks_qlc": 0, "decode_matmul": 0,
+                            "decode_matmul_qlc": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], Callable[..., int]] = {}
@@ -138,13 +140,15 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+               ctypes.c_uint)
 
 
 def bind(lib_name: str, fn_name: str, argtypes):
     """The C entry ``fn_name`` of ``csrc/<lib_name>.cu`` with its argument
     types declared (``P`` for pointers and the stream, so none is cut to
-    32 bits; ``I`` / ``LL`` for ints) and returning its ``cudaError_t``.
+    32 bits; ``I`` / ``LL`` / ``U`` for int, long long and unsigned int)
+    and returning its ``cudaError_t``.
     Bound once per process; later calls return the same entry."""
     key = (lib_name, fn_name)
     fn = _FNS.get(key)

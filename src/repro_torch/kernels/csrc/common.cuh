@@ -44,6 +44,49 @@ __device__ __forceinline__ void canonical_first(
   *sym = ss[idx];
 }
 
+// Canonical walk of one chunk: ``count`` symbols from the chunk's words
+// into ``dst`` (any integer type), zeros after them up to ``chunk``.
+template <typename T>
+__device__ __forceinline__ void walk_canonical(
+    const uint32_t* __restrict__ w, int count, int chunk, int cap,
+    int max_len, const int32_t* fc, const int32_t* bi, const int32_t* nc,
+    const int32_t* ss, int n_ss, T* dst) {
+  uint32_t bit_pos = 0;
+  for (int k = 0; k < count; ++k) {
+    const int window =
+        static_cast<int>(window32(w, bit_pos, cap) >> (32 - max_len));
+    int l, sym;
+    canonical_first(window, 1, max_len, fc, bi, nc, ss, n_ss, &l, &sym);
+    dst[k] = static_cast<T>(sym);
+    bit_pos += static_cast<uint32_t>(l);
+  }
+  for (int k = max(count, 0); k < chunk; ++k) dst[k] = static_cast<T>(0);
+}
+
+// Table-free QLC walk of one chunk (kernels B6 and B8): the top 2 bits
+// of the 16-bit window name the class, ``len_pack`` (8 bits a class)
+// its length l, the next l - 2 bits the index past the class base
+// (``base_pack``, 10 bits for classes 1..3).  ``st`` holds 256 entries;
+// a pointer clamps to entry 255, as the reference's does.  Every class
+// length lies in [2, 16] (the wrapper checks ``len_pack``).
+template <typename T>
+__device__ __forceinline__ void walk_qlc(
+    const uint32_t* __restrict__ w, int count, int chunk, int cap,
+    uint32_t len_pack, uint32_t base_pack, const int32_t* st, T* dst) {
+  uint32_t bit_pos = 0;
+  for (int k = 0; k < count; ++k) {
+    const uint32_t win = window32(w, bit_pos, cap) >> 16;
+    const uint32_t cls = win >> 14;
+    const uint32_t l = (len_pack >> (cls << 3)) & 0xFFu;
+    const uint32_t idx = (win >> (16u - l)) & ((1u << (l - 2u)) - 1u);
+    const uint32_t base =
+        cls == 0u ? 0u : (base_pack >> ((cls - 1u) * 10u)) & 0x3FFu;
+    dst[k] = static_cast<T>(st[min(base + idx, 255u)]);
+    bit_pos += l;
+  }
+  for (int k = max(count, 0); k < chunk; ++k) dst[k] = static_cast<T>(0);
+}
+
 // Raise a kernel's dynamic shared-memory limit to ``bytes`` on the
 // current device, calling cudaFuncSetAttribute only when the limit set
 // there so far (``allowed``, one slot per device) is smaller: a launch

@@ -1,4 +1,5 @@
-// Kernels B3 and B4: chunked canonical Huffman decode.
+// Kernels B3 and B4: chunked canonical Huffman decode; kernel B6:
+// chunked QLC decode.
 //
 // B3 replaces repro/kernels/decode.py::decode_chunks_pallas
 // (_decode_kernel): per chunk, a canonical-prefix walk of one symbol a
@@ -24,6 +25,15 @@
 // shared memory.  Output slots past each chunk's count are written 0.
 // Both are simple and right first; their time is far above the bound
 // (a plane fills a fraction of the card), which is later work.
+//
+// B6 replaces repro/kernels/decode.py::decode_chunks_qlc_pallas
+// (_decode_qlc_kernel): the table-free QLC walk, one symbol a step, the
+// class from the window's top 2 bits, its length and base from two
+// packed scalars (kernel arguments, so registers), the symbol from a
+// 256-entry table in shared memory (1 KB).  Bound as B3: the chain of
+// dependent steps inside a chunk.  Same scaffolding as B3 (one thread a
+// chunk, one warp a CTA); with 1 KB of shared memory a CTA, an SM holds
+// up to 32 of them, so a store leaf's many chunks fill the card.
 #include "common.cuh"
 
 namespace {
@@ -62,18 +72,24 @@ decode_canonical_kernel(const uint32_t* __restrict__ words,
   if (c >= nb) return;
   const uint32_t* w = words + static_cast<long long>(c) * cap;
   int32_t* o = out + static_cast<long long>(c) * chunk;
-  const int count = min(counts[c], chunk);
-  uint32_t bit_pos = 0;
-  for (int k = 0; k < count; ++k) {
-    const int window =
-        static_cast<int>(repro::window32(w, bit_pos, cap) >> (32 - max_len));
-    int l, sym;
-    repro::canonical_first(window, 1, max_len, s_fc, s_bi, s_nc, s_ss, n_ss,
-                           &l, &sym);
-    o[k] = sym;
-    bit_pos += static_cast<uint32_t>(l);
-  }
-  for (int k = max(count, 0); k < chunk; ++k) o[k] = 0;
+  repro::walk_canonical(w, min(counts[c], chunk), chunk, cap, max_len, s_fc,
+                        s_bi, s_nc, s_ss, n_ss, o);
+}
+
+__global__ void __launch_bounds__(kThreads)
+decode_qlc_kernel(const uint32_t* __restrict__ words,
+                  const int32_t* __restrict__ counts, uint32_t len_pack,
+                  uint32_t base_pack, const int32_t* __restrict__ sym_tab,
+                  int32_t* __restrict__ out, int nb, int chunk, int cap) {
+  __shared__ int32_t s_st[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_st[i] = sym_tab[i];
+  __syncthreads();
+
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nb) return;
+  repro::walk_qlc(words + static_cast<long long>(c) * cap,
+                  min(counts[c], chunk), chunk, cap, len_pack, base_pack,
+                  s_st, out + static_cast<long long>(c) * chunk);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -182,6 +198,22 @@ extern "C" int decode_multisym_launch(const void* words, const void* counts,
         static_cast<const int32_t*>(bi), static_cast<const int32_t*>(nc),
         static_cast<const int32_t*>(ss), n_ss, static_cast<int32_t*>(out),
         nb, chunk, cap, k, s_max, max_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int decode_qlc_launch(const void* words, const void* counts,
+                                 unsigned int len_pack, unsigned int base_pack,
+                                 const void* sym_tab, void* out, int nb,
+                                 int chunk, int cap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nb > 0) {
+    int grid = (nb + kThreads - 1) / kThreads;
+    decode_qlc_kernel<<<grid, kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(words),
+        static_cast<const int32_t*>(counts), len_pack, base_pack,
+        static_cast<const int32_t*>(sym_tab), static_cast<int32_t*>(out), nb,
+        chunk, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

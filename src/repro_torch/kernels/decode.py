@@ -1,5 +1,5 @@
-"""Kernels B3 and B4: chunked canonical Huffman decode
-(``csrc/decode.cu``).
+"""Kernels B3 and B4: chunked canonical Huffman decode; kernel B6:
+chunked QLC decode (``csrc/decode.cu``).
 
 B3 (``decode_chunks_canonical``) replaces
 ``repro/kernels/decode.py::decode_chunks_pallas``: a per-chunk canonical
@@ -15,11 +15,16 @@ SMs; B4 holds its LUT as uint8 symbols and uint16 metadata, 80 KB of
 shared memory (see the source).  Both are simple and slow; making them
 fast is later work.
 
-Each has its plain-torch twin beside it, the decoders of
-``core.encoder``: ``decode_chunks_canonical_plain`` is the reference's
-``decode_chunks_jit`` walk, and ``decode_chunks_multisym_plain`` runs
-B4's own algorithm — LUT step, slow path, emit — as a loop over steps
-vectorised across chunks.
+B6 (``decode_chunks_qlc``) replaces
+``repro/kernels/decode.py::decode_chunks_qlc_pallas``: the table-free
+QLC walk (class from the window's top 2 bits, length and base from two
+packed scalars, symbol from a 256-entry table), on B3's scaffolding.
+
+Each has its plain-torch twin beside it: ``decode_chunks_canonical_plain``
+is the reference's ``decode_chunks_jit`` walk, ``decode_chunks_multisym_plain``
+runs B4's own algorithm — LUT step, slow path, emit — as a loop over
+steps vectorised across chunks (both from ``core.encoder``), and
+``decode_chunks_qlc_plain`` is ``core.qlc``'s walk.
 """
 from __future__ import annotations
 
@@ -28,13 +33,17 @@ import torch
 from ..core.encoder import (DEFAULT_CHUNK, chunk_capacity_words,
                             decode_chunks, decode_chunks_multisym as _multisym)
 from ..core.huffman import MAX_CODE_LEN
-from .build import I, P, bind, check, count_launch, raise_on
+from ..core.qlc import SYM_TAB_SIZE
+from ..core.qlc import decode_chunks_qlc as _qlc
+from .build import I, P, U, bind, check, count_launch, raise_on
 
 __all__ = ["decode_chunks_canonical", "decode_chunks_canonical_plain",
-           "decode_chunks_multisym", "decode_chunks_multisym_plain"]
+           "decode_chunks_multisym", "decode_chunks_multisym_plain",
+           "decode_chunks_qlc", "decode_chunks_qlc_plain", "check_qlc_packs"]
 
 decode_chunks_canonical_plain = decode_chunks
 decode_chunks_multisym_plain = _multisym
+decode_chunks_qlc_plain = _qlc
 
 
 def _check_stream(block_words, chunk_counts, chunk, max_len, tables):
@@ -137,4 +146,60 @@ def decode_chunks_multisym(block_words: torch.Tensor,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "decode_chunks_multisym (B4)")
     count_launch("decode_chunks_multisym")
+    return out
+
+
+def check_qlc_packs(len_pack: int, base_pack: int) -> None:
+    """Raise unless every class length of ``len_pack`` lies in [2, 16]
+    and ``base_pack`` fits its 30 bits: a walk shifts by ``16 - l`` and
+    masks ``l - 2`` bits, which other lengths would break."""
+    lens = [(len_pack >> (8 * c)) & 0xFF for c in range(4)]
+    if not 0 <= len_pack < 1 << 32 or not all(2 <= l <= 16 for l in lens):
+        raise ValueError(f"len_pack {len_pack:#x}: class lengths {lens} "
+                         f"must lie in [2, 16]")
+    if not 0 <= base_pack < 1 << 30:
+        raise ValueError(f"base_pack {base_pack:#x} exceeds 30 bits")
+
+
+def decode_chunks_qlc(block_words: torch.Tensor, chunk_counts: torch.Tensor,
+                      len_pack: int, base_pack: int, sym_tab: torch.Tensor,
+                      *, chunk: int = DEFAULT_CHUNK,
+                      max_len: int = MAX_CODE_LEN) -> torch.Tensor:
+    """Kernel B6 on CUDA tensors, the plain walk on CPU tensors.
+
+    block_words (NB, cap) int32, chunk_counts (NB,) int32, the book's
+    packed class lengths and bases (``QLCBook.len_pack()`` /
+    ``base_pack()``) and its sym_tab (at most 256 int32 entries, padded
+    with zeros to 256 as the reference pads it; ``QLCBook.device_tables
+    ("qlc")`` holds it padded) → (NB, chunk) int32 symbols, zero past
+    each count.
+    """
+    check_qlc_packs(len_pack, base_pack)
+    if block_words.device.type == "cpu":
+        return decode_chunks_qlc_plain(block_words, chunk_counts, len_pack,
+                                       base_pack, sym_tab, chunk=chunk,
+                                       max_len=max_len)
+    if block_words.device.type != "cuda":
+        raise ValueError(f"no B6 kernel for device {block_words.device}")
+    dev = block_words.device
+    nb, cap = block_words.shape
+    if cap != chunk_capacity_words(chunk, max_len):
+        raise ValueError(f"cap {cap} != capacity for chunk={chunk}")
+    check(block_words, "block_words", torch.int32, dev)
+    check(chunk_counts, "chunk_counts", torch.int32, dev, (nb,))
+    check(sym_tab, "sym_tab", torch.int32, dev)
+    if not 1 <= sym_tab.numel() <= SYM_TAB_SIZE:
+        raise ValueError(f"sym_tab has {sym_tab.numel()} entries; expected "
+                         f"1..{SYM_TAB_SIZE}")
+    if sym_tab.numel() < SYM_TAB_SIZE:              # the reference's zero pad
+        sym_tab = torch.nn.functional.pad(
+            sym_tab, (0, SYM_TAB_SIZE - sym_tab.numel()))
+    out = torch.empty((nb, chunk), dtype=torch.int32, device=dev)
+    fn = bind("decode", "decode_qlc_launch", [P, P, U, U, P, P, I, I, I, P])
+    with torch.cuda.device(dev):
+        err = fn(block_words.data_ptr(), chunk_counts.data_ptr(), len_pack,
+                 base_pack, sym_tab.data_ptr(), out.data_ptr(), nb, chunk,
+                 cap, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "decode_chunks_qlc (B6)")
+    count_launch("decode_chunks_qlc")
     return out

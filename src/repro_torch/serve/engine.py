@@ -9,9 +9,15 @@ the chunked decode through the spec's backend (B4 for ``multisym``, B3
 for ``scan``) and a mismatch count that must stay 0.  The metrics dict
 has the reference's keys.
 
+Compressed-at-rest serving: ``param_store=`` (a
+``memstore.CompressedParamStore``) decodes the parameters once, on the
+card, when the engine is built (kernel B4 or B6); ``kv_mode="coded"``
+holds the KV cache in a ``memstore.CodedKVStore`` that codes each step's
+new slots and serves every step from a decoded read; ``hbm_stats``
+reports both ledgers.
+
 Not ported yet (each raises ``NotImplementedError``): ``lifecycle=``
-(ROADMAP A5), ``param_store=`` and ``kv_mode="coded"`` (A7), and
-``ep_degree > 1`` (MoE, A8).
+(ROADMAP A5), ``ep_degree > 1`` and prefix embeddings (MoE and VLM, A8).
 """
 from __future__ import annotations
 
@@ -148,30 +154,34 @@ def make_serve_step(model_cfg: ModelConfig,
 class Engine:
     """Batched-request engine over the port's model functions.
 
-    Runs on ``device`` (CUDA unless named); the parameters must already
-    lie there.  ``generate`` takes one host sync per decode step, for the
-    whole metrics dict, and keeps each step's scalar metrics (plus its
-    wall time, ``step_seconds``) in ``step_metrics``.
+    Runs on ``device`` (CUDA unless named); the parameters (or the
+    param store) must already lie there.  ``generate`` takes one host
+    sync per decode step for the whole metrics dict (a coded KV cache
+    adds its own: see ``memstore.kvstore``), and keeps each step's scalar
+    metrics (plus its wall time, ``step_seconds``) in ``step_metrics``.
     """
 
     def __init__(self, params, model_cfg: ModelConfig, serve_cfg: ServeConfig,
                  comp_spec: Optional[CompressionSpec] = None,
                  tp_degree: int = 1, ep_degree: int = 1,
-                 lifecycle=None, param_store=None, kv_mode: str = "raw", device=None):
+                 lifecycle=None, param_store=None, kv_mode: str = "raw",
+                 device=None):
         if lifecycle is not None:
             raise NotImplementedError("lifecycle= (book hot-refresh) is not "
                                       "ported yet (ROADMAP.md A5)")
-        if param_store is not None:
-            raise NotImplementedError("param_store= (coded parameters) is "
-                                      "not ported yet (ROADMAP.md A7)")
         if kv_mode not in ("raw", "coded"):
             raise ValueError(f"kv_mode must be 'raw' or 'coded', "
                              f"got {kv_mode!r}")
-        if kv_mode == "coded":
-            raise NotImplementedError("kv_mode='coded' is not ported yet "
-                                      "(ROADMAP.md A7)")
         _ep_unported(ep_degree)
         self.device = resolve_device(device)
+        if param_store is not None:
+            if params is not None:
+                raise ValueError("pass either params or param_store, not "
+                                 "both")
+            # Decode-on-load: the store stays the source of truth for the
+            # footprint ledger; the working copy is materialized once.
+            params = param_store.materialize_tree()
+        self.param_store = param_store
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params lie on {table.device}, the engine "
@@ -180,11 +190,34 @@ class Engine:
         self.cfg = model_cfg
         self.serve = serve_cfg
         self._spec = comp_spec
+        self.kv_mode = kv_mode
+        self._kv = self._make_kvstore() if kv_mode == "coded" else None
         self._step = make_serve_step(model_cfg, comp_spec,
                                      tp_degree=tp_degree)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(serve_cfg.seed)
         self.step_metrics: List[Dict[str, float]] = []
+
+    def _make_kvstore(self):
+        """The coded-KV store, with books from the spec's canonical plane
+        lengths (what a receiving peer rebuilds) or, without them, built
+        by the store from the first ingest's K/V through the param
+        store's codec.  Books are pinned per store, so ``generate`` makes
+        a fresh store per call."""
+        from ..memstore.kvstore import DEFAULT_KV_CHUNK, CodedKVStore
+        spec = self._spec
+        if spec is not None and spec.enabled and spec.plane_lengths:
+            codec = get_codec(spec.codec)
+            books = {plane: codec.book_from_lengths(
+                         np.asarray(lens, dtype=np.int32),
+                         key=(spec.tensor_kind, spec.scheme_name, plane))
+                     for plane, lens in spec.plane_lengths}
+            return CodedKVStore(books, chunk=spec.chunk, device=self.device)
+        if self.param_store is not None:
+            return CodedKVStore(codec=self.param_store.codec,
+                                chunk=DEFAULT_KV_CHUNK, device=self.device)
+        raise ValueError("kv_mode='coded' needs books: pass a comp_spec "
+                         "with activation books, or a param_store")
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         last = logits[:, -1]
@@ -206,6 +239,13 @@ class Engine:
                                                    dtype=torch.int64)
         logits, caches = prefill(self.params, {"tokens": tokens}, self.cfg,
                                  self.serve.max_cache_len)
+        if self._kv is not None:
+            # A fresh coded store per request: ingest the prefill slots,
+            # then serve every step from decoded reads, so the logits go
+            # through the encode → decode round trip.
+            self._kv = self._make_kvstore()
+            self._kv.ingest(caches)
+            caches = self._kv.read(caches)
         prompt_len = tokens.shape[1]
         tok = self._sample(logits)
         out = [tok]
@@ -215,6 +255,9 @@ class Engine:
             t0 = time.perf_counter()
             logits, caches, m = self._step(self.params, tok, caches,
                                            prompt_len + i)
+            if self._kv is not None:
+                self._kv.ingest(caches)
+                caches = self._kv.read(caches)
             tok = self._sample(logits)
             keys = [k for k, v in m.items() if v.dim() == 0]
             vals = torch.stack([m[k].to(torch.float64) for k in keys])
@@ -234,10 +277,23 @@ class Engine:
         return torch.cat(out, dim=1).cpu().numpy(), totals
 
     def hbm_stats(self) -> Dict[str, float]:
-        """The compressed-at-rest HBM ledger of the reference: zeros here,
-        where parameters and KV caches are held raw."""
-        stats = dict.fromkeys(("param_hbm_raw_bits", "param_hbm_coded_bits",
-                               "kv_hbm_raw_bits", "kv_hbm_coded_bits",
-                               "hbm_raw_bits", "hbm_coded_bits",
-                               "hbm_effective_bandwidth_x"), 0.0)
+        """Compressed-at-rest device-memory ledger (params + KV), reported
+        next to the wire ledger in ``generate`` totals.  Zeros when the
+        engine holds everything raw; ``hbm_effective_bandwidth_x`` is the
+        raw/coded multiplier a memory-bound step gains by reading coded
+        bytes."""
+        stats = {"param_hbm_raw_bits": 0.0, "param_hbm_coded_bits": 0.0,
+                 "kv_hbm_raw_bits": 0.0, "kv_hbm_coded_bits": 0.0}
+        if self.param_store is not None:
+            fp = self.param_store.footprint()
+            stats["param_hbm_raw_bits"] = float(fp["hbm_raw_bits"])
+            stats["param_hbm_coded_bits"] = float(fp["hbm_coded_bits"])
+        if self._kv is not None:
+            stats["kv_hbm_raw_bits"] = float(self._kv.kv_hbm_raw_bits)
+            stats["kv_hbm_coded_bits"] = float(self._kv.kv_hbm_coded_bits)
+        raw = stats["param_hbm_raw_bits"] + stats["kv_hbm_raw_bits"]
+        coded = stats["param_hbm_coded_bits"] + stats["kv_hbm_coded_bits"]
+        stats["hbm_raw_bits"] = raw
+        stats["hbm_coded_bits"] = coded
+        stats["hbm_effective_bandwidth_x"] = (raw / coded) if coded else 0.0
         return stats

@@ -150,10 +150,13 @@ def test_bitexact_wire_bits_equal_reference_on_same_logits(backend):
 def test_engine_refuses_unported_options():
     _, tcfg, _, tparams = _pair()
     sc = ServeConfig(max_cache_len=16)
-    for kw in ({"lifecycle": object()}, {"param_store": object()},
-               {"kv_mode": "coded"}, {"ep_degree": 2}):
-        with pytest.raises(NotImplementedError):
+    for kw, item in (({"lifecycle": object()}, "A5"),
+                     ({"ep_degree": 2}, "A8")):
+        with pytest.raises(NotImplementedError, match=item):
             Engine(tparams, tcfg, sc, device="cpu", **kw)
+    eng = Engine(tparams, tcfg, sc, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
     with pytest.raises(NotImplementedError, match="A8"):
         model_init(ModelConfig(name="m", arch_type="moe", d_model=8,
                                vocab_size=8,
