@@ -341,7 +341,7 @@ def main() -> int:
     phase("kernels vs plain (B5-B8)")
     t0 = time.perf_counter()
     new_kernels = check_b5_to_b8(torch, dev, params, step_logits,
-                                 int_ops_per_s, step_ns)
+                                 int_ops_per_s, step_ns, sms)
     for k, r in new_kernels.items():
         print(f"{k}: mismatches {r['mismatches']}, max abs err "
               f"{r['max_abs_err']}, {r['ms']:.4f} ms (plain "
@@ -349,6 +349,18 @@ def main() -> int:
               f"{r['bound_by']}) [{card}]")
         need(r["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {r['mismatches']} mismatching elements")
+    for k in ("decode_matmul", "decode_matmul_qlc"):
+        for tag, r in new_kernels[k]["by_matrix"].items():
+            print(f"  {k} {tag}: {r['ms']:.4f} ms, {r['chain_steps']} chain "
+                  f"steps, {r['ns_per_step']:.2f} ns a step, {r['ctas']} "
+                  f"CTAs, {r['ctas_per_sm']} a SM, {r['waves']} wave(s), "
+                  f"chain bound {r['chain_bound_ms']:.4f} ms, x @ w "
+                  f"{r['library_ms']:.4f} ms [{card}]")
+        for tag, r in new_kernels[k]["extra_cases"].items():
+            print(f"  {k} {tag}: tiles exact, product max abs err vs "
+                  f"plain {r['max_abs_err']}, rel err vs dense "
+                  f"{r['rel_err_vs_dense']:.3e}, longest codes "
+                  f"{r['max_code_len']}")
     print(f"B5-B8 phase: {time.perf_counter() - t0:.1f} s")
 
     # ---------------------------------------------- 4b. serve at full width
@@ -551,7 +563,7 @@ def used_words(bits):
 
 
 def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
-                   step_ns):
+                   step_ns, sms):
     """B5-B8 against their plain versions at the main path's shapes (see
     the module docstring), each timed by CUDA events beside its plain
     version and its yardstick.  Returns kernel -> its record fields."""
@@ -635,6 +647,9 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         "qlc_class_lengths": {p: b.class_lengths for p, b in books.items()}}
 
     # ---- B7 / B8: fused decode + matmul on three layer-0 matrices
+    import ctypes
+    from repro_torch.core.encoder import PREFIX_BITS
+    from repro_torch.kernels.build import I as C_INT, P as C_PTR, bind
     d_model = w_gate0.shape[0]
     mats = {"w_down[0]": (layer0["ffn"]["w_down"][0], 4096),
             "w_gate[0]": (w_gate0, 16384),
@@ -642,25 +657,54 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
     gen = torch.Generator().manual_seed(SEED + 1)
     xs = {tag: torch.randn((BATCH, w.shape[0]), generator=gen).to(
               torch.bfloat16).to(dev) for tag, (w, _) in mats.items()}
+    # The slow-path case: a 2048 x 2048 weight whose lo bytes follow a
+    # geometric law (byte k with weight 2^(-k/16)), so the lo book codes
+    # the rare bytes in more than PREFIX_BITS bits (about 0.4 % of the lo
+    # steps take the canonical search); and two decode batches whose M is
+    # no multiple of anything the kernel tiles (M = 1 and M = 37) on wo[0].
+    skew = (torch.randn((2048, 2048), generator=gen) * 0.02).to(
+        torch.bfloat16).view(torch.int16)
+    lo_byte = torch.clamp(-torch.log2(torch.rand((2048, 2048),
+                                                 generator=gen)) * 16,
+                          max=255).floor().to(torch.int16)
+    skew = ((skew & -256) | lo_byte).view(torch.bfloat16).to(dev)
+    extra = {"slow path (2048 x 2048, geometric lo bytes)":
+             (skew, 4096, torch.randn((BATCH, 2048), generator=gen)),
+             "wo[0], M = 1": (mats["wo[0]"][0], 4096,
+                              torch.randn((1, 2048), generator=gen)),
+             "wo[0], M = 37": (mats["wo[0]"][0], 4096,
+                               torch.randn((37, 2048), generator=gen))}
+    occupancy = bind("decode_matmul", "decode_matmul_occupancy",
+                     [C_INT, C_PTR])
     for codec, kname, kern, plain in (
             ("huffman", "decode_matmul", dm.decode_matmul,
              dm.decode_matmul_plain),
             ("qlc", "decode_matmul_qlc", dm.decode_matmul_qlc,
              dm.decode_matmul_qlc_plain)):
+        per_sm = ctypes.c_int(0)
+        err = occupancy(int(codec == "qlc"), ctypes.addressof(per_sm))
+        need(err == 0, f"{kname}: occupancy query failed ({err})")
+        ctas_per_sm = per_sm.value
         rec = {"mismatches": 0, "max_abs_err": 0.0, "ms": 0.0,
                "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                "chain_bound_ms": 0.0, "chain_step_ns": step_ns,
-               "tolerance": MATMUL_TOL, "by_matrix": {}}
-        for tag, (w, chunk) in mats.items():
+               "tolerance": MATMUL_TOL, "ctas_per_sm": ctas_per_sm,
+               "by_matrix": {}, "extra_cases": {}}
+
+        def run_case(tag, w, chunk, x):
+            """Code w into a store, run the kernel and its plain version
+            with tiles, check both; returns (store, blocks, args)."""
             k_rows, n_cols = w.shape
-            x = xs[tag]
             st = CompressedParamStore.from_tree({"w": w}, codec=codec,
                                                 chunk=chunk, min_size=1,
                                                 device=dev)
             lo, hi, counts = st.plane_blocks("w")
             tabs = ops.decode_matmul_tables(st.books, dev)
             kw = dict(chunk=chunk, n_cols=n_cols)
+            if codec == "huffman":
+                kw["prefix"] = ops.decode_matmul_prefix(st.books, dev)
             y, tiles = kern(x, lo, hi, counts, *tabs, tiles=True, **kw)
+            kw.pop("prefix", None)
             (yp, tp), p_ms = timed_once(torch, lambda: plain(
                 x, lo, hi, counts, *tabs, tiles=True, **kw))
             t_bad = int((tiles.view(torch.int16)
@@ -674,6 +718,26 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
             dense = (x.float() @ w.float())
             rel = float((y - dense).abs().max() / dense.abs().max())
             need(rel < 1e-4, f"{kname} {tag}: product vs dense rel err {rel}")
+            rec["mismatches"] += t_bad
+            rec["max_abs_err"] = max(rec["max_abs_err"], y_err)
+            lens = {p: int(b.lengths.max()) if codec == "huffman" else
+                    max(b.class_lengths) for p, b in st.books.items()}
+            r = {"shape": [k_rows, n_cols], "m": x.shape[0], "chunk": chunk,
+                 "chunks": lo.shape[0], "plain_ms": p_ms,
+                 "tile_mismatches": t_bad, "max_abs_err": y_err,
+                 "rel_err_vs_dense": rel, "max_code_len": lens}
+            if codec == "huffman":      # lo steps that take the slow path
+                cnt = torch.bincount((w.view(torch.int16) & 0xFF).reshape(
+                    -1).long(), minlength=256).cpu()
+                slow = torch.from_numpy(st.books["lo"].lengths > PREFIX_BITS)
+                r["lo_slow_step_share"] = float(cnt[slow].sum() / cnt.sum())
+            return st, (lo, hi, counts, tabs, kw), r
+
+        for tag, (w, chunk) in mats.items():
+            x = xs[tag]
+            st, (lo, hi, counts, tabs, kw), r = run_case(tag, w, chunk, x)
+            if codec == "huffman":
+                kw["prefix"] = ops.decode_matmul_prefix(st.books, dev)
             k_ms = cuda_ms(torch, lambda: kern(x, lo, hi, counts, *tabs,
                                                **kw), 10)
             lib = cuda_ms(torch, lambda: x @ w, 50)
@@ -685,25 +749,35 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
             nbytes = (x.numel() * 2 + 4 * (used_words(lo_bits)
                                            + used_words(hi_bits))
                       + nb * 4 + 2 * (3 * 17 + 256) * 4
-                      + BATCH * n_cols * 4)
+                      + BATCH * w.shape[1] * 4)
             bound, by = least_ms(nbytes, 2 * 16 * w.numel(), int_ops_per_s,
                                  flops=2.0 * BATCH * w.numel())
             chain = chunk * step_ns * 1e-6
-            rec["mismatches"] += t_bad
-            rec["max_abs_err"] = max(rec["max_abs_err"], y_err)
+            groups = -(-nb // dm.GROUP)
             rec["ms"] += k_ms
-            rec["plain_ms"] += p_ms
+            rec["plain_ms"] += r["plain_ms"]
             rec["bound_ms"] += bound
             rec["library_ms"] += lib
             rec["chain_bound_ms"] += chain
-            rec["by_matrix"][tag] = {
-                "shape": [k_rows, n_cols], "chunk": chunk, "chunks": nb,
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                "bound_by": by, "chain_bound_ms": chain, "library_ms": lib,
-                "tile_mismatches": t_bad, "max_abs_err": y_err,
-                "rel_err_vs_dense": rel,
-                "coded_ratio": st.footprint()["ratio"]}
-            del st, lo, hi, y, tiles, yp, tp
+            r.update(ms=k_ms, bound_ms=bound, bound_by=by,
+                     chain_bound_ms=chain, library_ms=lib,
+                     chain_steps=chunk, ns_per_step=k_ms * 1e6 / chunk,
+                     ctas=groups, ctas_per_sm=ctas_per_sm,
+                     waves=-(-groups // (ctas_per_sm * sms)),
+                     coded_ratio=st.footprint()["ratio"])
+            rec["by_matrix"][tag] = r
+            del st, lo, hi, counts
+        for tag, (w, chunk, x) in extra.items():
+            x = x.to(torch.bfloat16).to(dev)
+            st, _, r = run_case(tag, w, chunk, x)
+            rec["extra_cases"][tag] = r
+            del st
+        slow = rec["extra_cases"]["slow path (2048 x 2048, geometric lo bytes)"]
+        if codec == "huffman":
+            need(slow["max_code_len"]["lo"] > PREFIX_BITS, "B7 slow-path "
+                 f"case: the lo book's longest code is "
+                 f"{slow['max_code_len']['lo']} bits, not over "
+                 f"{PREFIX_BITS}")
         rec["bound_by"] = max(rec["by_matrix"].values(),
                               key=lambda r: r["bound_ms"])["bound_by"]
         out[kname] = rec

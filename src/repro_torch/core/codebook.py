@@ -84,6 +84,9 @@ class Codebook:
                        kernel's compact LUT; symbols are < 256 and
                        ``count | bits << 8`` ≤ 8 | 13 << 8, so both fit
                        in 80 KB of shared memory at K=13, s_max=8
+          prefix     — ((2^PREFIX_BITS,) int16,): B7's one-lookup table
+                       of ``symbol | length << 8``
+                       (``encoder.canonical_prefix_table``)
         """
         dev = torch.device(device)
         ck = (name, str(dev))
@@ -104,6 +107,11 @@ class Codebook:
             mt = self.multisym_tables()
             out = (t(mt.syms.astype(np.uint8), torch.uint8),
                    t(mt.meta.astype(np.int16), torch.int16))
+        elif name == "prefix":
+            from .encoder import canonical_prefix_table
+            out = (canonical_prefix_table(self.device_tables("canonical",
+                                                             dev),
+                                          self.max_len),)
         else:
             raise ValueError(f"unknown table set {name!r}")
         self._device_cache[ck] = out

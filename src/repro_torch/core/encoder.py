@@ -291,6 +291,34 @@ def canonical_window_tables(tables, lo: int, max_len: int
     return canonical_first_code(wins, fc, bi, nc, ss, ls, max_len)
 
 
+# Bits of B7's one-lookup table: 2^12 entries of (symbol, length), 8 KB
+# a book as int16.
+PREFIX_BITS = 12
+
+
+def canonical_prefix_table(tables, max_len: int, k: int = PREFIX_BITS
+                           ) -> torch.Tensor:
+    """B7's one-lookup table for one book: (2^k,) int16, on the tables'
+    device.  Entry p is ``symbol | length << 8`` of the first code of
+    every max_len-bit window whose top k bits are p, as
+    ``canonical_first_code`` over lengths 1..max_len gives it with
+    sorted_symbols padded to 256 (the kernel's search), wherever the top
+    k bits decide it; 0 where they do not (the first code is longer than
+    k bits), which sends the kernel to that search.  With max_len ≤ k
+    every entry is decided, the no-valid-length fallback included."""
+    fc, bi, nc, ss = (t.to(torch.int64) for t in tables)
+    ss = torch.nn.functional.pad(ss.reshape(-1), (0, 256 - ss.numel()))
+    p = torch.arange(1 << k, device=fc.device)
+    win = p << (max_len - k) if max_len >= k else p >> (k - max_len)
+    short = torch.arange(1, min(k, max_len) + 1, device=fc.device)
+    l, sym = canonical_first_code(win, fc, bi, nc, ss, short, max_len)
+    off = (win >> (max_len - l)) - fc[l]
+    decided = (off >= 0) & (off < nc[l])
+    if max_len <= k:
+        decided = torch.ones_like(decided)
+    return torch.where(decided, sym | (l << 8), 0).to(torch.int16)
+
+
 def decode_chunks(block_words: torch.Tensor, chunk_counts: torch.Tensor,
                   first_code: torch.Tensor, base_index: torch.Tensor,
                   num_codes: torch.Tensor, sorted_symbols: torch.Tensor,

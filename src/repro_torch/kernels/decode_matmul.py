@@ -15,18 +15,31 @@ to bf16 0.0.
 Sum order.  The TPU kernel adds ``x_blk @ tile`` chunk after chunk into
 one resident output.  Hopper runs blocks in no order, so the kernels fix
 a two-level order instead: chunks go in groups of ``GROUP`` consecutive
-chunks; a group's partial sums ``acc + x[m, r] * W[r, n]`` over its rows
-in order, and the output sums the group partials in group order, every
-multiply and add a separate float32 operation.  The plain versions here
-(``decode_matmul_plain``, ``decode_matmul_qlc_plain``) decode with the
-plain walks and add in exactly that order, so kernel and plain version
-agree bit for bit for any float32 x; against the reference's chunk-major
-sum (``ref.decode_matmul_ref``) the product agrees to float32 rounding.
-The decoded tiles are bit-exact everywhere.
+chunks (one CTA, one walker lane a chunk); a group's partial for output
+(m, n) starts at 0 and takes, for each row-in-chunk j in order and for
+each chunk c of the group in order, ``acc + x[m, c·rows + j] ·
+W[c·rows + j, n]``; the output sums the group partials in group order.
+Every multiply and add is a separate float32 operation.  The plain
+versions here (``decode_matmul_plain``, ``decode_matmul_qlc_plain``)
+decode with the plain walks and add in exactly that order
+(``grouped_product``), so kernel and plain version agree bit for bit for
+any float32 x; against the reference's chunk-major sum
+(``ref.decode_matmul_ref``) the product agrees to float32 rounding.  The
+decoded tiles are bit-exact everywhere.
 
-Bound on the card: the chain of dependent decode steps inside a chunk
-(see the source); the products are a decode batch's few M·K·N
-multiply-adds, written as plain float32 loops, no tensor cores yet.
+Bound on the card: the chain of ``chunk`` dependent decode steps inside
+a chunk (the store puts chunk ≥ N, so one chunk's chain is the floor of
+the call; on gemma2-2b's layer-0 matrices it lies above ``x @ W`` of the
+raw weight), then bytes (the coded words); the products are a decode
+batch's few M·K·N multiply-adds, plain float32 on CUDA cores.  The
+kernels walk every chunk of a matrix at once (a CTA holds a small ring
+of decoded slices, not whole tiles, so nothing limits the chunk; one
+walker warp a plane), read bits from registers fed by a shared-memory
+word ring that each walker lane fills a slice ahead with cp.async, and
+B7 decodes a step with one lookup in a 2^``PREFIX_BITS``-entry (symbol,
+length) table per book (``core.encoder.canonical_prefix_table``), codes
+longer than that taking the canonical search.  See the source for the
+design.
 """
 from __future__ import annotations
 
@@ -34,7 +47,8 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from ..core.encoder import chunk_capacity_words, decode_chunks
+from ..core.encoder import (PREFIX_BITS, canonical_prefix_table,
+                            chunk_capacity_words, decode_chunks)
 from ..core.huffman import MAX_CODE_LEN
 from ..core.qlc import SYM_TAB_SIZE, decode_chunks_qlc
 from ..core.symbols import bf16_from_planes
@@ -43,13 +57,11 @@ from .decode import check_qlc_packs
 
 __all__ = ["GROUP", "decode_matmul", "decode_matmul_plain",
            "decode_matmul_qlc", "decode_matmul_qlc_plain", "grouped_product",
-           "pad_x"]
+           "pad_x", "prefix_tables"]
 
-# Chunks per group of the sum order; the CUDA source's kGroup, checked
-# against the built library at its first launch.
-GROUP = 4
-# Shared memory a CTA may hold (Hopper: 227 KB), less the static tables.
-_MAX_SMEM = 232_448 - 4096
+# Chunks per group of the sum order: the CUDA source's kGroup (one walker
+# lane a chunk), checked against the built library at its first launch.
+GROUP = 32
 
 Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -87,32 +99,44 @@ def pad_x(x: torch.Tensor, nb: int, rows: int) -> torch.Tensor:
 def grouped_product(x: torch.Tensor, tiles: torch.Tensor, n_cols: int
                     ) -> torch.Tensor:
     """x (M, NB * rows) float32 @ the decoded weight tiles (NB, chunk)
-    bf16, in the kernels' sum order: per group of ``GROUP`` chunks
-    ``acc = acc + x[m, r] * W[r, n]`` over the group's rows, then the
-    group partials in group order.  Returns (M, n_cols) float32."""
+    bf16, in the kernels' sum order: per group of ``GROUP`` consecutive
+    chunks, each output (m, n) starts at 0 and takes, for each
+    row-in-chunk j in order and for each chunk c of the group in order,
+    ``acc = acc + x[m, c * rows + j] * W[c * rows + j, n]``; then the
+    output sums the group partials in group order.  Each multiply and
+    add is its own float32 operation.  Returns (M, n_cols) float32."""
     nb, chunk = tiles.shape
     rows = chunk // n_cols
     m = x.shape[0]
+    dev = x.device
     ng = -(-nb // GROUP)
-    span = GROUP * rows
-    w = torch.zeros((ng * span, n_cols), dtype=torch.float32,
-                    device=tiles.device)
-    w[:nb * rows] = tiles.reshape(nb * rows, n_cols).to(torch.float32)
-    xs = torch.zeros((m, ng * span), dtype=torch.float32, device=x.device)
-    xs[:, :nb * rows] = x
-    wg = w.reshape(ng, span, n_cols)
-    xg = xs.reshape(m, ng, span).permute(1, 0, 2)            # (ng, M, span)
-    valid = (torch.clamp(nb - torch.arange(ng, device=x.device) * GROUP,
-                         max=GROUP) * rows)[:, None, None]
-    partial = torch.zeros((ng, m, n_cols), dtype=torch.float32,
-                          device=x.device)
-    for j in range(span):
-        prod = xg[:, :, j, None] * wg[:, None, j, :]
-        partial = torch.where(j < valid, partial + prod, partial)
-    out = torch.zeros((m, n_cols), dtype=torch.float32, device=x.device)
+    w = torch.zeros((ng * GROUP, rows, n_cols), dtype=torch.float32,
+                    device=dev)
+    w[:nb] = tiles.reshape(nb, rows, n_cols).to(torch.float32)
+    xs = torch.zeros((m, ng * GROUP, rows), dtype=torch.float32, device=dev)
+    xs[:, :nb] = x.reshape(m, nb, rows)
+    wg = w.reshape(ng, GROUP, rows, n_cols)
+    xg = xs.reshape(m, ng, GROUP, rows).permute(1, 2, 3, 0)  # (ng, G, rows, M)
+    here = torch.clamp(nb - torch.arange(ng, device=dev) * GROUP,
+                       max=GROUP)[:, None, None]
+    partial = torch.zeros((ng, m, n_cols), dtype=torch.float32, device=dev)
+    for j in range(rows):
+        for c in range(GROUP):
+            prod = xg[:, c, j, :, None] * wg[:, c, j, None, :]
+            partial = torch.where(c < here, partial + prod, partial)
+    out = torch.zeros((m, n_cols), dtype=torch.float32, device=dev)
     for g in range(ng):
         out = out + partial[g]
     return out
+
+
+def prefix_tables(first_code, base_index, num_codes, sorted_symbols,
+                  max_len: int = MAX_CODE_LEN) -> Tuple[torch.Tensor, ...]:
+    """B7's one-lookup tables for the two stacked books (row 0 lo, row 1
+    hi), on the tables' device: ``canonical_prefix_table`` of each."""
+    return tuple(canonical_prefix_table(
+        (first_code[p], base_index[p], num_codes[p], sorted_symbols[p]),
+        max_len) for p in range(2))
 
 
 def _plain_result(x, lo_sym, hi_sym, nb, rows, n_cols, tiles) -> Result:
@@ -160,9 +184,6 @@ def _launch(name: str, entry: str, argtypes, x, lo_words, hi_words,
     dev = lo_words.device
     nb, cap, rows = _geometry(lo_words, hi_words, chunk_counts, chunk, n_cols,
                               max_len)
-    if 2 * GROUP * chunk > _MAX_SMEM:
-        raise ValueError(f"chunk {chunk} needs {2 * GROUP * chunk} B of "
-                         f"shared memory for its tiles; at most {_MAX_SMEM}")
     check(lo_words, "lo_words", torch.int32, dev)
     check(hi_words, "hi_words", torch.int32, dev)
     check(chunk_counts, "chunk_counts", torch.int32, dev)
@@ -193,14 +214,19 @@ def _launch(name: str, entry: str, argtypes, x, lo_words, hi_words,
 def decode_matmul(x, lo_words, hi_words, chunk_counts, first_code,
                   base_index, num_codes, sorted_symbols, *, chunk: int,
                   n_cols: int, max_len: int = MAX_CODE_LEN,
-                  tiles: bool = False) -> Result:
+                  tiles: bool = False, prefix=None) -> Result:
     """Kernel B7 on CUDA tensors, its plain version on CPU tensors.
 
     x (M, K) (bf16 on the serve path; widened to float32), lo/hi words
     (NB, cap) int32, chunk_counts (NB,) int32, the two books' canonical
     tables stacked: first_code / base_index / num_codes (2, max_len + 1)
     and sorted_symbols (2, 256) int32 → (M, n_cols) float32; with
-    ``tiles=True`` also the decoded weight (NB, chunk) bf16.
+    ``tiles=True`` also the decoded weight (NB, chunk) bf16.  ``prefix``
+    is the kernel's (lo, hi) pair of one-lookup tables, (2^PREFIX_BITS,)
+    int16 each, as ``prefix_tables`` gives them (callers that hold books
+    pass their cached copies, ``Codebook.device_tables("prefix")``);
+    without it the kernel's wrapper builds them from the stacked tables.
+    The plain version needs none.
     """
     args = (first_code, base_index, num_codes, sorted_symbols)
     if lo_words.device.type == "cpu":
@@ -215,10 +241,18 @@ def decode_matmul(x, lo_words, hi_words, chunk_counts, first_code,
     for name, t in zip(("first_code", "base_index", "num_codes"), args):
         check(t, name, torch.int32, dev, (2, max_len + 1))
     check(sorted_symbols, "sorted_symbols", torch.int32, dev, (2, 256))
+    bits = bind("decode_matmul", "decode_matmul_prefix_bits", [])()
+    if bits != PREFIX_BITS:
+        raise RuntimeError(f"decode_matmul.cu looks up {bits}-bit prefixes, "
+                           f"the tables hold {PREFIX_BITS}")
+    if prefix is None:
+        prefix = prefix_tables(*args, max_len=max_len)
+    for name, t in zip(("prefix[0]", "prefix[1]"), prefix):
+        check(t, name, torch.int16, dev, (1 << PREFIX_BITS,))
     return _launch("decode_matmul", "decode_matmul_launch",
-                   [P] * 11 + [I] * 7 + [P], x, lo_words, hi_words,
-                   chunk_counts, [t.data_ptr() for t in args], chunk=chunk,
-                   n_cols=n_cols, max_len=max_len, tiles=tiles)
+                   [P] * 13 + [I] * 7 + [P], x, lo_words, hi_words,
+                   chunk_counts, [t.data_ptr() for t in (*args, *prefix)],
+                   chunk=chunk, n_cols=n_cols, max_len=max_len, tiles=tiles)
 
 
 def decode_matmul_qlc(x, lo_words, hi_words, chunk_counts,

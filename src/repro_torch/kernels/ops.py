@@ -26,7 +26,7 @@ from .histogram import histogram256
 
 __all__ = ["histogram256", "message_bits", "encode_with_book",
            "decode_chunks", "decode_chunks_multisym", "decode_chunks_qlc",
-           "decode_matmul", "decode_matmul_tables"]
+           "decode_matmul", "decode_matmul_prefix", "decode_matmul_tables"]
 
 
 def message_bits(symbols: torch.Tensor, lengths) -> torch.Tensor:
@@ -97,10 +97,22 @@ def decode_matmul(x: torch.Tensor, lo_words: torch.Tensor,
         raise ValueError("decode_matmul: lo/hi books disagree on max_len")
     if chunk % n_cols != 0:
         raise ValueError(f"chunk {chunk} not a multiple of n_cols {n_cols}")
-    fn = _decode_matmul_qlc if name == "qlc" else _decode_matmul
+    dev = lo_words.device
+    fn, kw = _decode_matmul_qlc, {}
+    if name != "qlc":
+        fn = _decode_matmul
+        if dev.type == "cuda":
+            kw["prefix"] = decode_matmul_prefix(books, dev)
     return fn(x, lo_words, hi_words, chunk_counts,
-              *decode_matmul_tables(books, lo_words.device), chunk=chunk,
-              n_cols=n_cols, max_len=lo_b.max_len, tiles=tiles)
+              *decode_matmul_tables(books, dev), chunk=chunk, n_cols=n_cols,
+              max_len=lo_b.max_len, tiles=tiles, **kw)
+
+
+def decode_matmul_prefix(books: Mapping[str, object], device) -> Tuple:
+    """B7's (lo, hi) one-lookup tables, each book's cached copy on
+    ``device``."""
+    return tuple(books[p].device_tables("prefix", device)[0]
+                 for p in ("lo", "hi"))
 
 
 def decode_matmul_tables(books: Mapping[str, object], device) -> Tuple:

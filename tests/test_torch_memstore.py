@@ -35,6 +35,11 @@ from repro.serve.engine import (Engine as RefEngine,  # noqa: E402
 from repro_torch.checkpoint import (load_compressed_store,  # noqa: E402
                                     save_compressed)
 from repro_torch.comm.compression import CompressionSpec  # noqa: E402
+from repro_torch.core.codebook import build_codebook  # noqa: E402
+from repro_torch.core.encoder import (PREFIX_BITS,  # noqa: E402
+                                      canonical_prefix_table,
+                                      canonical_window_tables)
+from repro_torch.core.huffman import canonical_decode_tables  # noqa: E402
 from repro_torch.checkpoint.ckpt import _flatten  # noqa: E402
 from repro_torch.kernels.decode_matmul import (GROUP,  # noqa: E402
                                                grouped_product)
@@ -118,61 +123,147 @@ def test_store_equals_reference(codec):
     assert ts.footprint()["ratio"] < 0.85
 
 
-@pytest.mark.parametrize("codec", CODECS)
-def test_decode_matmul_plain_against_reference(codec):
-    """The odd 37 x 10 weight at chunk 70 (a tail chunk, two groups)."""
-    rng = np.random.default_rng(1)
-    w32 = rng.normal(0, 0.02, (37, 10)).astype(np.float32)
-    x32 = rng.normal(0, 1.0, (4, 37)).astype(np.float32)
+def _decode_matmul_against_reference(codec, k_rows, n_cols, chunk, seed):
+    """Port store.matmul (B7/B8's plain versions on the CPU) against the
+    reference's ``decode_matmul`` on the same seeded weight and x: the
+    coded planes word for word, the decoded tiles bit for bit, the
+    product at float32 tolerance (the two add the same exact products in
+    different orders).  Returns the port's lo words."""
+    rng = np.random.default_rng(seed)
+    w32 = rng.normal(0, 0.02, (k_rows, n_cols)).astype(np.float32)
+    x32 = rng.normal(0, 1.0, (4, k_rows)).astype(np.float32)
     w, x = (torch.from_numpy(a).to(torch.bfloat16) for a in (w32, x32))
     rw, rx = (jnp.asarray(a, jnp.bfloat16) for a in (w32, x32))
-    rs = RefStore.from_tree({"w": rw}, codec=codec, chunk=70, min_size=1)
-    ts = CompressedParamStore.from_tree({"w": w}, codec=codec, chunk=70,
+    rs = RefStore.from_tree({"w": rw}, codec=codec, chunk=chunk, min_size=1)
+    ts = CompressedParamStore.from_tree({"w": w}, codec=codec, chunk=chunk,
                                         min_size=1, device="cpu")
     lo, hi, counts = ts.plane_blocks("w")
-    assert lo.shape[0] > GROUP                    # more than one group
     rlo, rhi, rcounts = rs.plane_blocks("w")
     np.testing.assert_array_equal(lo.numpy().view(np.uint32), rlo)
     np.testing.assert_array_equal(hi.numpy().view(np.uint32), rhi)
     got, tiles = ts.matmul(x, "w", tiles=True)
     # decoded tiles: the reference's decode of the same planes (the
     # weight itself), then bf16 zeros of the tail slack
+    size = k_rows * n_cols
     flat = tiles.reshape(-1)
     want_w = np.asarray(rs.materialize("w")).view(np.uint16).reshape(-1)
     np.testing.assert_array_equal(
-        flat[:370].view(torch.int16).numpy().view(np.uint16), want_w)
-    assert torch.equal(flat[:370].view(torch.int16),
+        flat[:size].view(torch.int16).numpy().view(np.uint16), want_w)
+    assert torch.equal(flat[:size].view(torch.int16),
                        w.reshape(-1).view(torch.int16))
-    assert not flat[370:].view(torch.int16).any()
-    want = ref_decode_matmul(rx, rlo, rhi, rcounts, rs.books, chunk=70,
-                             n_cols=10, interpret=True)
+    assert not flat[size:].view(torch.int16).any()
+    want = ref_decode_matmul(rx, rlo, rhi, rcounts, rs.books, chunk=chunk,
+                             n_cols=n_cols, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_allclose(got.numpy(), x.float().numpy() @
                                w.float().numpy(), rtol=1e-5, atol=1e-6)
+    return lo
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_decode_matmul_plain_against_reference(codec):
+    """The odd 37 x 10 weight at chunk 70 (6 chunks, a tail chunk, one
+    group)."""
+    lo = _decode_matmul_against_reference(codec, 37, 10, 70, seed=1)
+    assert lo.shape[0] == 6
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_decode_matmul_plain_against_reference_across_groups(codec):
+    """The odd 303 x 10 weight at chunk 70: 44 chunks, so two groups (the
+    second a ragged 12), ending in a tail chunk of 20 symbols."""
+    lo = _decode_matmul_against_reference(codec, 303, 10, 70, seed=3)
+    assert lo.shape[0] > GROUP                    # more than one group
+    assert lo.shape[0] % GROUP != 0 and 303 * 10 % 70 != 0
 
 
 def test_grouped_product_sums_in_the_documented_order():
     """The kernels' sum order, spelled out in float32 scalars: per group
-    of GROUP chunks acc = acc + x * w over its rows, then the groups."""
+    of GROUP chunks, acc = 0, then acc = acc + x * w for each row-in-chunk
+    j and, inside it, each chunk of the group; then the groups in order.
+    For rows = 1 (an FFN matrix's layout) and rows = 3, over two full
+    groups and a ragged tail group of one chunk."""
     rng = np.random.default_rng(2)
-    rows, n_cols, nb, m = 3, 2, 2 * GROUP + 1, 2
-    w = torch.from_numpy(rng.normal(0, 1, (nb, rows * n_cols)).astype(
-        np.float32)).to(torch.bfloat16)
-    x = torch.from_numpy(rng.normal(0, 1, (m, nb * rows)).astype(np.float32))
-    got = grouped_product(x, w, n_cols).numpy()
-    wf = w.float().reshape(nb * rows, n_cols).numpy()
-    xf = x.numpy()
     f32 = np.float32
-    for i in range(m):
-        for n in range(n_cols):
-            out = f32(0)
-            for g0 in range(0, nb, GROUP):
-                acc = f32(0)
-                for r in range(g0 * rows, min(g0 + GROUP, nb) * rows):
-                    acc = f32(acc + f32(xf[i, r] * wf[r, n]))
-                out = f32(out + acc)
-            assert got[i, n].view(np.int32) == out.view(np.int32)
+    n_cols, nb, m = 2, 2 * GROUP + 1, 2
+    for rows in (1, 3):
+        w = torch.from_numpy(rng.normal(0, 1, (nb, rows * n_cols)).astype(
+            np.float32)).to(torch.bfloat16)
+        x = torch.from_numpy(rng.normal(0, 1, (m, nb * rows)).astype(
+            np.float32))
+        got = grouped_product(x, w, n_cols).numpy()
+        wf = w.float().reshape(nb * rows, n_cols).numpy()
+        xf = x.numpy()
+        for i in range(m):
+            for n in range(n_cols):
+                out = f32(0)
+                for g0 in range(0, nb, GROUP):
+                    acc = f32(0)
+                    for j in range(rows):
+                        for c in range(g0, min(g0 + GROUP, nb)):
+                            r = c * rows + j
+                            acc = f32(acc + f32(xf[i, r] * wf[r, n]))
+                    out = f32(out + acc)
+                assert got[i, n].view(np.int32) == out.view(np.int32), rows
+
+
+def _prefix_cases():
+    """(name, canonical tables, max_len): seeded books with codes longer
+    than PREFIX_BITS, a bf16-weight-like book, a short book (max_len 10)
+    and a one-symbol book."""
+    rng = np.random.default_rng(5)
+    heavy = (rng.pareto(0.5, 256) * 10).astype(np.int64) + 1
+    normal = np.bincount(np.clip(rng.normal(128, 12, 200_000), 0, 255)
+                         .astype(np.int64), minlength=256)
+    one = np.zeros(256, np.int32)
+    one[7] = 1
+    books = [build_codebook(heavy), build_codebook(normal),
+             build_codebook(heavy, max_len=10)]
+    return [("heavy", books[0].tables, 16, books[0]),
+            ("normal", books[1].tables, 16, books[1]),
+            ("short", books[2].tables, 10, books[2]),
+            ("one_symbol", canonical_decode_tables(one), 16, None)]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_prefix_table_equals_canonical_walk(case):
+    """B7's one-lookup table, built by the plain code, against the plain
+    canonical search (``canonical_first`` over lengths 1..max_len, with
+    sorted_symbols padded to 256 as the kernel holds them) at every
+    max_len-bit window: a decided entry gives its (length, symbol); an
+    undecided one (0) exactly where no code of at most PREFIX_BITS bits
+    starts the window, which the kernel sends to that search.  The
+    books' cached copies (``device_tables("prefix")``) are the same."""
+    name, tb, max_len, book = _prefix_cases()[case]
+    ss = np.zeros(256, np.int32)
+    ss[:tb.sorted_symbols.size] = tb.sorted_symbols
+    tables = tuple(torch.from_numpy(np.asarray(a, np.int32)) for a in
+                   (tb.first_code, tb.base_index, tb.num_codes, ss))
+    tab = canonical_prefix_table(tables, max_len).to(torch.int64)
+    assert tab.shape == (1 << PREFIX_BITS,)
+    want_len, want_sym = canonical_window_tables(tables, 1, max_len)
+    k = PREFIX_BITS
+    if max_len >= k:
+        e = tab[torch.arange(1 << max_len) >> (max_len - k)]
+        fast = e != 0
+        assert torch.equal(e[fast] >> 8, want_len[fast])
+        assert torch.equal(e[fast] & 0xFF, want_sym[fast])
+        wins = torch.arange(1 << max_len)
+        short = torch.zeros(1 << max_len, dtype=torch.bool)
+        for ln in range(1, k + 1):
+            off = (wins >> (max_len - ln)) - int(tb.first_code[ln])
+            short |= (off >= 0) & (off < int(tb.num_codes[ln]))
+        assert torch.equal(fast, short), name
+    else:
+        win = torch.arange(1 << k) >> (k - max_len)
+        assert torch.equal(tab >> 8, want_len[win])
+        assert torch.equal(tab & 0xFF, want_sym[win])
+    if name in ("heavy", "one_symbol"):
+        assert bool((tab == 0).any())        # the slow path is reached
+    if book is not None:
+        (cached,) = book.device_tables("prefix", "cpu")
+        assert torch.equal(cached.to(torch.int64), tab)
 
 
 @pytest.mark.parametrize("codec", CODECS)
