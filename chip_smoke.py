@@ -13,11 +13,18 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 3. kernels against their plain-torch versions, bit for bit, at the main
    path's shapes: the 1 024 000 symbols per byte plane of a batch-4
    ``gemma2-2b`` decode step (real logits of the warm-up prefill), plus
-   an odd-chunk case (chunk 1001, an e4m3 plane); each kernel is timed
-   with CUDA events beside its plain version (and, for B1, the one-call
-   gather ``lut[sym]`` as a yardstick the port never calls).  A chain
-   probe (one thread, dependent shared-memory table lookups) measures
-   the least time of one decode step, which bounds B3, B4 and B6-B8.
+   an odd-chunk case (chunk 1001, an e4m3 plane), and B3 (with B1 and B2
+   to code it) on ``w_gate[0]``'s hi plane (33.5 M symbols, 16 384
+   chunks); each kernel is timed with CUDA events beside its plain
+   version (and, for B1, the one-call gather ``lut[sym]`` as a yardstick
+   the port never calls), and by the profiler's device events
+   (``device_ms``: the device's own time a call, where the events loop
+   also holds the host's), and B1's host time a call is read with
+   ``time.perf_counter`` over calls that do not wait for the device
+   (``host_us``); B1 and its yardstick, both host-bound, are read in
+   turns and keep their least reading.  A chain probe (one thread, dependent shared-memory
+   table lookups) measures the least time of one decode step, which
+   bounds B3, B4 and B6-B8.
    The same for B5-B8 ("kernels vs plain (B5-B8)"): B5 (histogram) on
    the logits planes and on ``w_gate[0]``'s hi plane (33.5 M symbols),
    B6 (QLC decode) at chunk 2048 on the logits planes with QLC books from
@@ -26,7 +33,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``w_gate[0]`` at chunk 16384, ``wo[0]`` as 2048 x 2048 at chunk 4096)
    with x = (4, K) bf16, the decode batch: decoded tiles bit for bit, the
    product within ``MATMUL_TOL`` of the plain version, and
-   ``torch.matmul`` of the raw weight timed as the yardstick;
+   ``torch.matmul`` of the raw weight timed as the yardstick (each
+   kernel and yardstick also by its device events);
 4. serve ``gemma2-2b`` at full width: bf16 weights from a seeded
    generator, a warm-up prefill of 4 prompts x 64 tokens whose logits'
    byte-plane histograms build the books, then ``Engine.generate`` on 4
@@ -57,6 +65,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -128,6 +137,57 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int):
+    """(device ms a call, device events a call) of ``fn`` from
+    torch.profiler's device events: the summed time of every kernel,
+    memset and copy that ``reps`` calls (after one warm-up) launched, over
+    ``reps``.  Unlike ``cuda_ms``, no host time is in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, events = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        us += e.self_cuda_time_total if t is None else t
+        events += e.count
+    return us / 1e3 / reps, events / reps
+
+
+def host_us(torch, fn, reps: int = 200, rounds: int = 3) -> float:
+    """Host time of one call of ``fn`` in microseconds: the least of
+    ``rounds`` perf_counter readings over ``reps`` calls with no sync
+    (the device runs behind), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
+def interleaved(fns, measure, rounds: int = 5):
+    """The least of ``rounds`` readings of ``measure(fn)`` for each of
+    ``fns``, taken in turns (A, B, A, B, ...), so that a slow spell of
+    the host falls on all of them alike."""
+    best = [float("inf")] * len(fns)
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            best[i] = min(best[i], measure(fn))
+    return best
 
 
 def compare(torch, got, want):
@@ -210,9 +270,12 @@ def main() -> int:
     print(f"built {sorted(libs)} and the chain probe in "
           f"{time.perf_counter() - t0:.3f} s")
     for src, log in sorted(build.build_logs().items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for line in log.splitlines():       # -Xptxas -v, kernel by kernel
+            fn = re.search(r"entry function '\w*?\d+(\w+_kernel)", line)
+            if fn:
+                print(f"  ptxas {src} {fn.group(1)}:")
+            elif "registers" in line or "spill" in line:
+                print(f"    {line.replace('ptxas info    :', '').strip()}")
 
     # ------------------------------- 4a. model + warm-up prefill (books)
     phase("gemma2-2b init + warm-up prefill")
@@ -264,8 +327,9 @@ def main() -> int:
             counts = torch.from_numpy(chunk_counts_for(n, chunk)).to(dev)
             canon = b.device_tables("canonical", dev)
             ms = b.device_tables("multisym", dev)
+            (pre,) = b.device_tables("prefix", dev)
             k3 = decode.decode_chunks_canonical(k2[0], counts, *canon,
-                                                chunk=chunk)
+                                                chunk=chunk, prefix=pre)
             record("decode_chunks_canonical", (k3,),
                    (decode.decode_chunks_canonical_plain(
                        k2[0], counts, *canon, chunk=chunk),))
@@ -278,7 +342,7 @@ def main() -> int:
             need(torch.equal(concat_chunks(k4, cc), sym) and
                  torch.equal(concat_chunks(k3, cc), sym),
                  f"{tag}/{p}: kernels do not round-trip the plane")
-            enc[p] = (sym, lut, k1, k2, counts, canon, ms)
+            enc[p] = (sym, lut, k1, k2, counts, canon, ms, pre)
         print(f"{tag}: chunk {chunk}, {len(sym_planes)} plane(s) x "
               f"{next(iter(sym_planes.values())).numel()} symbols, "
               f"mismatches so far "
@@ -291,37 +355,57 @@ def main() -> int:
         def over(fn):
             return lambda: [fn(*e) for e in each]
 
-        timing["encode_lookup"] = (
-            cuda_ms(torch, over(lambda s, lut, *_: encode.encode_lookup(
-                s, lut)), 50) / np_,
-            cuda_ms(torch, over(lambda s, lut, *_: encode.encode_lookup_plain(
-                s, lut)), 20) / np_,
-            cuda_ms(torch, over(lambda s, lut, *_: lut[s.long()]), 50) / np_)
-        timing["pack_blocks"] = (
-            cuda_ms(torch, over(lambda s, lut, k1, *_: bitpack.pack_blocks(
-                k1[0], k1[1], chunk=chunk)), 50) / np_,
-            cuda_ms(torch, over(lambda s, lut, k1, *_:
-                                bitpack.pack_blocks_plain(
-                                    k1[0], k1[1], chunk=chunk)), 10) / np_,
-            None)
-        timing["decode_chunks_canonical"] = (
-            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
-                                decode.decode_chunks_canonical(
-                                    k2[0], c, *canon, chunk=chunk)), 10) / np_,
-            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
-                                decode.decode_chunks_canonical_plain(
-                                    k2[0], c, *canon, chunk=chunk)), 1) / np_,
-            None)
-        timing["decode_chunks_multisym"] = (
-            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
-                                decode.decode_chunks_multisym(
-                                    k2[0], c, *ms, *canon, chunk=chunk)),
-                    10) / np_,
-            cuda_ms(torch, over(lambda s, l, k1, k2, c, canon, ms:
-                                decode.decode_chunks_multisym_plain(
-                                    k2[0], c, *ms, *canon, chunk=chunk)),
-                    1) / np_,
-            None)
+        b1 = over(lambda s, lut, *_: encode.encode_lookup(s, lut))
+        b1_lib = over(lambda s, lut, *_: lut[s.long()])
+        b2 = over(lambda s, lut, k1, *_: bitpack.pack_blocks(
+            k1[0], k1[1], chunk=chunk))
+        b3 = over(lambda s, l, k1, k2, c, canon, ms, pre:
+                  decode.decode_chunks_canonical(k2[0], c, *canon,
+                                                 chunk=chunk, prefix=pre))
+        b4 = over(lambda s, l, k1, k2, c, canon, ms, pre:
+                  decode.decode_chunks_multisym(k2[0], c, *ms, *canon,
+                                                chunk=chunk))
+        # B1 and its yardstick are host-bound: both are read in turns
+        ms1, lib1 = interleaved((b1, b1_lib),
+                                lambda f: cuda_ms(torch, f, 50) / np_)
+        host1, lib_host1 = interleaved((b1, b1_lib),
+                                       lambda f: host_us(torch, f, rounds=1)
+                                       / np_)
+        timing["encode_lookup"] = dict(
+            ms=ms1,
+            plain_ms=cuda_ms(torch, over(
+                lambda s, lut, *_: encode.encode_lookup_plain(s, lut)),
+                20) / np_,
+            library_ms=lib1, host_us=host1, library_host_us=lib_host1)
+        timing["pack_blocks"] = dict(
+            ms=cuda_ms(torch, b2, 50) / np_,
+            plain_ms=cuda_ms(torch, over(
+                lambda s, lut, k1, *_: bitpack.pack_blocks_plain(
+                    k1[0], k1[1], chunk=chunk)), 10) / np_,
+            library_ms=None)
+        timing["decode_chunks_canonical"] = dict(
+            ms=cuda_ms(torch, b3, 10) / np_,
+            plain_ms=cuda_ms(torch, over(
+                lambda s, l, k1, k2, c, canon, *_:
+                decode.decode_chunks_canonical_plain(
+                    k2[0], c, *canon, chunk=chunk)), 1) / np_,
+            library_ms=None)
+        timing["decode_chunks_multisym"] = dict(
+            ms=cuda_ms(torch, b4, 10) / np_,
+            plain_ms=cuda_ms(torch, over(
+                lambda s, l, k1, k2, c, canon, ms, pre:
+                decode.decode_chunks_multisym_plain(
+                    k2[0], c, *ms, *canon, chunk=chunk)), 1) / np_,
+            library_ms=None)
+        for k, fn, lib, reps in (("encode_lookup", b1, b1_lib, 50),
+                                 ("pack_blocks", b2, None, 50),
+                                 ("decode_chunks_canonical", b3, None, 10),
+                                 ("decode_chunks_multisym", b4, None, 10)):
+            d_ms, events = device_ms(torch, fn, reps)
+            timing[k].update(device_ms=d_ms / np_,
+                             device_events_per_call=events / np_,
+                             library_device_ms=(device_ms(torch, lib, reps)[0]
+                                                / np_ if lib else None))
         return enc, timing
 
     main_enc, timing = check_case("main path (bf16 logits)",
@@ -332,11 +416,31 @@ def main() -> int:
                  for p, s in odd.items()}
     check_case("odd chunk (e4m3 plane)", odd, odd_books, ODD_CHUNK,
                time_it=False)
+    b3_store = check_b3_store_plane(torch, dev, params, int_ops_per_s, sms)
+    stats["decode_chunks_canonical"]["mismatches"] += b3_store["mismatches"]
     for k, s in stats.items():
         need(s["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {s}")
     step_ns = chain_step_ns(torch, probe, dev)
     print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
+    b3_store.update(chain_step_ns=step_ns,
+                    chain_bound_ms=CHUNK * step_ns * 1e-6)
+    b3_fields = dict(ns_per_step=timing["decode_chunks_canonical"]["ms"]
+                     * 1e6 / CHUNK,
+                     **b3_launch_shape(main_enc["lo"][3][0].shape[0], sms))
+    for tag, r in (("logits plane", dict(timing["decode_chunks_canonical"],
+                                         **b3_fields)),
+                   ("w_gate[0] hi plane", b3_store)):
+        print(f"  decode_chunks_canonical {tag}: {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}), {r['ns_per_step']:.2f} ns a step, "
+              f"{r['chunks_per_cta']} chunks a CTA, {r['ctas']} CTAs, "
+              f"{r['ctas_per_sm']} a SM, {r['waves']} wave(s) [{card}]")
+    t = timing["encode_lookup"]
+    print(f"  encode_lookup: {t['ms']:.5f} ms a call (device "
+          f"{t['device_ms']:.5f}, {t['device_events_per_call']:g} device "
+          f"events a call, host {t['host_us']:.2f} us), lut[s.long()] "
+          f"{t['library_ms']:.5f} ms (device {t['library_device_ms']:.5f}, "
+          f"host {t['library_host_us']:.2f} us) [{card}]")
 
     phase("kernels vs plain (B5-B8)")
     t0 = time.perf_counter()
@@ -344,14 +448,15 @@ def main() -> int:
                                  int_ops_per_s, step_ns, sms)
     for k, r in new_kernels.items():
         print(f"{k}: mismatches {r['mismatches']}, max abs err "
-              f"{r['max_abs_err']}, {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.5f} by "
-              f"{r['bound_by']}) [{card}]")
+              f"{r['max_abs_err']}, {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}, plain {r['plain_ms']:.3f}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
         need(r["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {r['mismatches']} mismatching elements")
     for k in ("decode_matmul", "decode_matmul_qlc"):
         for tag, r in new_kernels[k]["by_matrix"].items():
-            print(f"  {k} {tag}: {r['ms']:.4f} ms, {r['chain_steps']} chain "
+            print(f"  {k} {tag}: {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']:.4f}), {r['chain_steps']} chain "
                   f"steps, {r['ns_per_step']:.2f} ns a step, {r['ctas']} "
                   f"CTAs, {r['ctas_per_sm']} a SM, {r['waves']} wave(s), "
                   f"chain bound {r['chain_bound_ms']:.4f} ms, x @ w "
@@ -496,8 +601,10 @@ def main() -> int:
                            int_ops_per_s, step_ns)
     kernels = []
     for k, (tag, src, replaces) in meta.items():
-        ms, plain_ms, lib_ms = timing[k]
+        t = dict(timing[k])
         bound_s, bound_by, extra = bounds[k]
+        if k == "decode_chunks_canonical":     # B7's fields, and the store
+            extra = dict(extra, **b3_fields, store_plane=b3_store)  # plane
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
@@ -506,9 +613,9 @@ def main() -> int:
                                  "coded_at_rest": coded_launches[k]},
             "mismatches": stats[k]["mismatches"],
             "max_abs_err": stats[k]["max_abs_err"],
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": lib_ms, **extra})
+            "library_ms": t.pop("library_ms"), **t, **extra})
     new_meta = {
         "histogram256": ("B5", "histogram.cu",
                          "src/repro/kernels/histogram.py:47"),
@@ -562,6 +669,74 @@ def used_words(bits):
     return int(((bits.long() + 31) // 32 + 1).sum())
 
 
+def b3_launch_shape(nb: int, sms: int) -> dict:
+    """B3's launch for ``nb`` chunks, as its C entry chooses it: chunks
+    (walker lanes) a CTA, walker warps a CTA, CTAs, dynamic shared memory
+    a CTA, CTAs an SM holds at once, and waves."""
+    import ctypes
+    from repro_torch.kernels.build import I, P, bind
+    shape = (ctypes.c_int * 5)()
+    err = bind("decode", "decode_canonical_shape", [I, P])(
+        nb, ctypes.addressof(shape))
+    need(err == 0, f"B3 launch-shape query failed ({err})")
+    per_cta, warps, ctas, smem, per_sm = list(shape)
+    need(per_sm > 0, "B3: no CTA fits an SM")
+    return {"chunks_per_cta": per_cta, "walker_warps_per_cta": warps,
+            "ctas": ctas, "smem_bytes_per_cta": smem, "ctas_per_sm": per_sm,
+            "waves": -(-ctas // (per_sm * sms))}
+
+
+def check_b3_store_plane(torch, dev, params, int_ops_per_s, sms) -> dict:
+    """B3 on ``w_gate[0]``'s hi plane (33.5 M symbols: 16 384 chunks at
+    CHUNK, far more than SMs), with a book from the plane's own counts:
+    coded by B1 + B2, decoded by B3 and by its plain version, held bit for
+    bit and to the plane, and timed (CUDA events, the profiler)."""
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import (PREFIX_BITS, chunk_counts_for,
+                                          concat_chunks)
+    from repro_torch.core.symbols import bf16_planes
+    from repro_torch.kernels import decode, histogram, ops
+    t0 = time.perf_counter()
+    sym = bf16_planes(params["groups"][0][0]["ffn"]["w_gate"][0])["hi"]
+    hist = histogram.histogram256(sym).cpu()
+    book = build_codebook(hist.numpy())
+    words, bits = ops.encode_with_book(sym, book, chunk=CHUNK)
+    cc = chunk_counts_for(sym.numel(), CHUNK)
+    counts = torch.from_numpy(cc).to(dev)
+    canon = book.device_tables("canonical", dev)
+    (pre,) = book.device_tables("prefix", dev)
+
+    def run():
+        return decode.decode_chunks_canonical(words, counts, *canon,
+                                              chunk=CHUNK, prefix=pre)
+
+    got = run()
+    want, plain_ms = timed_once(torch, lambda: (
+        decode.decode_chunks_canonical_plain(words, counts, *canon,
+                                             chunk=CHUNK)))
+    bad = int((got != want).sum())
+    need(torch.equal(concat_chunks(got, cc), sym), "B3 w_gate[0] hi plane: "
+         "the kernel does not round-trip the plane")
+    ms = cuda_ms(torch, run, 10)
+    d_ms, _ = device_ms(torch, run, 10)
+    nb, n = words.shape[0], sym.numel()
+    nbits = int(bits.to(torch.int64).sum())
+    bound, by = least_ms(used_words(bits) * 4 + nb * 4 + (3 * 17 + 256) * 4
+                         + 2 * (1 << PREFIX_BITS) + nb * CHUNK * 4,
+                         8 * n + 5 * nbits, int_ops_per_s)
+    slow = torch.from_numpy(book.lengths > PREFIX_BITS)
+    print(f"B3 w_gate[0] hi plane: {n} symbols, {nb} chunks, mismatches "
+          f"{bad}, codes {int(book.lengths.min())}..{int(book.lengths.max())}"
+          f" bits ({time.perf_counter() - t0:.1f} s)")
+    return {"symbols": n, "chunks": nb, "mismatches": bad, "ms": ms,
+            "device_ms": d_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "chain_steps_per_chunk": CHUNK,
+            "ns_per_step": ms * 1e6 / CHUNK,
+            "max_code_len": int(book.lengths.max()),
+            "slow_step_share": float(hist[slow].sum() / n),
+            **b3_launch_shape(nb, sms)}
+
+
 def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
                    step_ns, sms):
     """B5-B8 against their plain versions at the main path's shapes (see
@@ -600,6 +775,10 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
                                        for s in each], 20) / 2
     lib_ms = cuda_ms(torch, lambda: [torch.bincount(s, minlength=256)
                                      for s in each], 50) / 2
+    dev_ms = device_ms(torch, lambda: [histogram.histogram256(s)
+                                       for s in each], 50)[0] / 2
+    lib_dev_ms = device_ms(torch, lambda: [torch.bincount(s, minlength=256)
+                                           for s in each], 50)[0] / 2
     gate_hi = cases["w_gate[0] hi"]
     gate_ms = cuda_ms(torch, lambda: histogram.histogram256(gate_hi), 20)
     bound, by = least_ms(n + 256 * 8, 2 * n, int_ops_per_s)
@@ -608,6 +787,7 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
     out["histogram256"] = {
         "mismatches": bad, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+        "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
         "symbols": n, "w_gate0_hi_symbols": gate_hi.numel(),
         "w_gate0_hi_ms": gate_ms, "w_gate0_hi_bound_ms": gate_bound}
 
@@ -632,6 +812,8 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         enc.append((words, counts, args, bits))
     ms = cuda_ms(torch, lambda: [decode.decode_chunks_qlc(
         w, c, *a, chunk=CHUNK) for w, c, a, _ in enc], 10) / 2
+    dev_ms = device_ms(torch, lambda: [decode.decode_chunks_qlc(
+        w, c, *a, chunk=CHUNK) for w, c, a, _ in enc], 10)[0] / 2
     _, plain_ms = timed_once(torch, lambda: [decode.decode_chunks_qlc_plain(
         w, c, *a, chunk=CHUNK) for w, c, a, _ in enc])
     nb = enc[0][0].shape[0]
@@ -641,7 +823,8 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
     out["decode_chunks_qlc"] = {
         "mismatches": bad, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms / 2, "bound_ms": bound, "bound_by": by,
-        "library_ms": None, "chain_steps_per_chunk": CHUNK,
+        "library_ms": None, "device_ms": dev_ms, "library_device_ms": None,
+        "chain_steps_per_chunk": CHUNK,
         "chain_step_ns": step_ns, "chain_bound_ms": CHUNK * step_ns * 1e-6,
         "symbols": n, "chunks": nb,
         "qlc_class_lengths": {p: b.class_lengths for p, b in books.items()}}
@@ -687,6 +870,7 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         ctas_per_sm = per_sm.value
         rec = {"mismatches": 0, "max_abs_err": 0.0, "ms": 0.0,
                "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "device_ms": 0.0, "library_device_ms": 0.0,
                "chain_bound_ms": 0.0, "chain_step_ns": step_ns,
                "tolerance": MATMUL_TOL, "ctas_per_sm": ctas_per_sm,
                "by_matrix": {}, "extra_cases": {}}
@@ -741,6 +925,9 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
             k_ms = cuda_ms(torch, lambda: kern(x, lo, hi, counts, *tabs,
                                                **kw), 10)
             lib = cuda_ms(torch, lambda: x @ w, 50)
+            k_dev = device_ms(torch, lambda: kern(x, lo, hi, counts, *tabs,
+                                                  **kw), 10)[0]
+            lib_dev = device_ms(torch, lambda: x @ w, 50)[0]
             lo_bits = torch.from_numpy(st.entries["w"].planes["lo"]
                                        .bit_counts)
             hi_bits = torch.from_numpy(st.entries["w"].planes["hi"]
@@ -758,9 +945,12 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
             rec["plain_ms"] += r["plain_ms"]
             rec["bound_ms"] += bound
             rec["library_ms"] += lib
+            rec["device_ms"] += k_dev
+            rec["library_device_ms"] += lib_dev
             rec["chain_bound_ms"] += chain
             r.update(ms=k_ms, bound_ms=bound, bound_by=by,
-                     chain_bound_ms=chain, library_ms=lib,
+                     chain_bound_ms=chain, library_ms=lib, device_ms=k_dev,
+                     library_device_ms=lib_dev,
                      chain_steps=chunk, ns_per_step=k_ms * 1e6 / chunk,
                      ctas=groups, ctas_per_sm=ctas_per_sm,
                      waves=-(-groups // (ctas_per_sm * sms)),
@@ -967,7 +1157,7 @@ def kernel_bounds(torch, enc, chunk, cap_words, int_ops_per_s, step_ns):
         "encode_lookup": best(n + 256 * 8 + 8 * n + 8, 2 * n),
         "pack_blocks": best(8 * n + nb * cap * 4 + nb * 4, 12 * n),
         "decode_chunks_canonical": best(
-            used_words * 4 + nb * 4 + tables + nb * chunk * 4,
+            used_words * 4 + nb * 4 + tables + 2 * 4096 + nb * chunk * 4,
             8 * n + 5 * bits),
         "decode_chunks_multisym": best(
             used_words * 4 + nb * 4 + tables + ms_tables + nb * chunk * 4,

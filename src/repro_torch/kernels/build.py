@@ -30,7 +30,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 __all__ = ["CSRC", "SOURCES", "LAUNCHES", "reset_launches", "count_launch",
            "build_dir", "nvcc_path", "build_all", "library", "build_logs",
-           "bind", "check", "raise_on", "P", "I", "LL", "U"]
+           "bind", "check", "raise_on", "raw_stream", "P", "I", "LL", "U"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("encode", "bitpack", "decode", "histogram", "decode_matmul")
@@ -172,6 +172,13 @@ def check(t, name: str, dtype, device, shape=None) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index`` as the raw
+    ``cudaStream_t`` (an int), without building a ``torch.cuda.Stream``."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(err: int, what: str) -> None:

@@ -44,25 +44,6 @@ __device__ __forceinline__ void canonical_first(
   *sym = ss[idx];
 }
 
-// Canonical walk of one chunk: ``count`` symbols from the chunk's words
-// into ``dst`` (any integer type), zeros after them up to ``chunk``.
-template <typename T>
-__device__ __forceinline__ void walk_canonical(
-    const uint32_t* __restrict__ w, int count, int chunk, int cap,
-    int max_len, const int32_t* fc, const int32_t* bi, const int32_t* nc,
-    const int32_t* ss, int n_ss, T* dst) {
-  uint32_t bit_pos = 0;
-  for (int k = 0; k < count; ++k) {
-    const int window =
-        static_cast<int>(window32(w, bit_pos, cap) >> (32 - max_len));
-    int l, sym;
-    canonical_first(window, 1, max_len, fc, bi, nc, ss, n_ss, &l, &sym);
-    dst[k] = static_cast<T>(sym);
-    bit_pos += static_cast<uint32_t>(l);
-  }
-  for (int k = max(count, 0); k < chunk; ++k) dst[k] = static_cast<T>(0);
-}
-
 // Table-free QLC walk of one chunk (kernels B6 and B8): the top 2 bits
 // of the 16-bit window name the class, ``len_pack`` (8 bits a class)
 // its length l, the next l - 2 bits the index past the class base
@@ -106,13 +87,21 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes, int* allowed) {
   return err;
 }
 
+// The current device's SM count, queried once a device (a launch asks
+// for it every call).
 inline int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
     return 132;
-  return sms;
+  if (sms[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 132;
+    sms[dev] = n;
+  }
+  return sms[dev];
 }
 
 }  // namespace repro

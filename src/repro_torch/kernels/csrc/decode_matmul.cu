@@ -29,15 +29,16 @@
 //     walked in one wave.  The group stays 32 chunks (it fixes the sum
 //     order) even where that leaves SMs idle (2048 chunks: 64 CTAs): a
 //     step is one warp's latency, and is shortest with one CTA an SM.
-//   * The bit reader lives in registers: the current word, the next and
-//     the one after (`BitReader`); a window is one funnel shift, and a
-//     word boundary moves the three along with selects, not a branch (a
-//     warp issues in order, so a branch or a load on the chain stalls
-//     every lane).  Each lane copies its plane's words into its own ring
-//     in shared memory with cp.async, a slice ahead of its reader, so no
-//     load address depends on the code just decoded and the walker never
-//     waits for device memory.  The reader clamps its word index to
-//     cap - 2 as window32 does (the chunk's pad word).
+//   * The bit reader lives in registers (walk.cuh, shared with B3): the
+//     current word, the next and the one after (`BitReader`); a window is
+//     one funnel shift, and a word boundary moves the three along with
+//     selects, not a branch (a warp issues in order, so a branch or a
+//     load on the chain stalls every lane).  Each lane copies its plane's
+//     words into its own ring in shared memory with cp.async, a slice
+//     ahead of its reader, so no load address depends on the code just
+//     decoded and the walker never waits for device memory.  The reader
+//     clamps its word index to cap - 2 as window32 does (the chunk's pad
+//     word).
 //   * B7 decodes a step with one lookup: a 2^kPrefixBits-entry table of
 //     `symbol | length << 8` per plane (uint16, 8 KB each, in shared
 //     memory) resolves every code of at most kPrefixBits bits; an entry
@@ -66,41 +67,37 @@
 // the reference's chunk-major sum the product agrees to float32 rounding.
 // An optional tile output (the decoded bf16 weight as uint16) lets a
 // check hold the decoded tiles to a plain decode.
-#include "common.cuh"
+#include "walk.cuh"
 
 namespace {
+
+// The walker's parts (walk.cuh): the word ring, the bit reader and the
+// prefix table's lookup.
+using repro::BitReader;
+using repro::copies_done;
+using repro::kAhead;
+using repro::kPrefix;
+using repro::kPrefixBits;
+using repro::kRingStride;
+using repro::kSlice;
+using repro::stage_words;
 
 constexpr int kGroup = 32;          // chunks per CTA = walker lanes
 constexpr int kWalkers = 2;         // walker warps: lo plane, hi plane
 constexpr int kConsumers = 2;       // consumer warps
 constexpr int kConsumerThreads = 32 * kConsumers;
 constexpr int kThreads = 32 * (kWalkers + kConsumers);
-constexpr int kSlice = 64;          // decoded values per chunk and slot
 // A chunk's row of a slot: a spare element in front (where a walker's
 // pipelined store lands before its first step) and one behind, so that
 // rows start on other banks.
 constexpr int kSliceRow = kSlice + 2;
-// Words a plane's reader can move through in one slice (kSlice codes of
-// at most kMaxLen bits), and the word ring that holds two slices of them
-// ahead of the reader plus its registers' words (a power of two, so a
-// word's slot is its index masked).
-constexpr int kSliceWords = (kSlice * repro::kMaxLen + 31) / 32 + 1;
-constexpr int kAhead = 2 * kSliceWords + 3;
-constexpr int kRing = 128;
 static_assert(kWalkers == 2 && kConsumers == 2, "warp roles assume 2 + 2");
-static_assert(kRing >= kAhead && (kRing & (kRing - 1)) == 0,
-              "word ring too small or not a power of two");
-constexpr int kPrefixBits = 12;     // B7's one-lookup table: 2^12 entries
-constexpr int kPrefix = 1 << kPrefixBits;
 constexpr int kReduceThreads = 256;
 // Named barriers (0 is __syncthreads): FULL per slot, EMPTY per slot.
 constexpr int kFull = 1;
 constexpr int kEmpty = 3;
 
 constexpr int kSymRingBytes = 2 * kGroup * kSliceRow * 2;
-// A lane's ring takes kRing + 1 words, so that lanes at the same slot
-// read other banks.
-constexpr int kRingStride = kRing + 1;
 constexpr int kWordRingBytes = 2 * kGroup * kRingStride * 4;
 constexpr int kSmemBytes = kSymRingBytes + kWordRingBytes;
 
@@ -111,67 +108,6 @@ __device__ __forceinline__ void bar_sync(int id) {
 __device__ __forceinline__ void bar_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
 }
-
-__device__ __forceinline__ void copy_word_async(uint32_t* dst,
-                                                const uint32_t* src) {
-  const unsigned int d =
-      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void copies_done() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// A plane's bit reader: words cur (index widx), nxt and after (index
-// wnext = widx + 2), and the bit offset pos into cur.  window() is the
-// 32 stream bits at the cursor, as window32 gives them (the funnel shift
-// takes pos mod 32).  advance() has no branch, so a step's chain is
-// shift, decode, add, compare, select.
-struct BitReader {
-  uint32_t cur, nxt, after;
-  int pos, wnext, lim, last;
-
-  __device__ __forceinline__ void start(const uint32_t* ring, int cap) {
-    cur = ring[0];
-    nxt = ring[1];
-    after = ring[min(2, cap - 1)];
-    pos = 0;
-    wnext = 2;
-    last = cap - 2;
-    lim = 0 < last ? 32 : 1 << 30;
-  }
-
-  // The index of the word in cur.
-  __device__ __forceinline__ int widx() const { return wnext - 2; }
-
-  __device__ __forceinline__ uint32_t window() const {
-    return __funnelshift_l(nxt, cur, static_cast<unsigned int>(pos));
-  }
-
-  // The word after `after` (from the ring), which a step loads at its
-  // start, so that the load is done by the time advance() may need it.
-  __device__ __forceinline__ uint32_t upcoming(const uint32_t* ring) const {
-    return ring[(wnext + 1) & (kRing - 1)];
-  }
-
-  // Move on by `len` bits; past a word boundary the three words move
-  // along and `up` (this step's upcoming()) becomes `after`.  The word
-  // index stops at last = cap - 2, where window32 clamps its two-word
-  // fetch (lim, the bit count that moves the words, is then out of
-  // reach); pos keeps counting bits mod 32, as window32's does.
-  __device__ __forceinline__ void advance(int len, uint32_t up) {
-    pos += len;
-    const bool move = pos >= lim;
-    pos &= 31;
-    cur = move ? nxt : cur;
-    nxt = move ? after : nxt;
-    after = move ? up : after;
-    wnext += move ? 1 : 0;
-    lim = wnext - 2 < last ? 32 : 1 << 30;
-  }
-};
 
 // A step decoder: lookup(win) gives the entry of the code at the window,
 // length(e) its bits, symbol(e) its symbol; slow(e) marks an entry whose
@@ -188,12 +124,8 @@ struct CanonicalStep {
   const int32_t* ss;          // shared, 256 entries
   int max_len;
 
-  // The entry's byte offset is one shift and one three-input logic op.
   __device__ __forceinline__ uint32_t lookup(uint32_t win) const {
-    const uint32_t off =
-        ((win >> (31 - kPrefixBits)) & ((kPrefix - 1) << 1)) | table;
-    return *reinterpret_cast<const uint16_t*>(
-        reinterpret_cast<const uint8_t*>(prefix) + off);
+    return repro::prefix_entry(prefix, table, win);
   }
   __device__ __forceinline__ int length(uint32_t e) const {
     return static_cast<int>(e >> 8);
@@ -243,16 +175,6 @@ struct QlcStep {
 struct Geometry {
   int nb, chunk, cap, rows, n_cols, m;
 };
-
-// A walker lane copies the words [from, to) of its chunk's plane into
-// its ring with cp.async, and commits them as one group.
-__device__ __forceinline__ void stage_words(const uint32_t* __restrict__ src,
-                                            uint32_t* ring, int from,
-                                            int to) {
-  for (int w = from; w < to; ++w)
-    copy_word_async(ring + (w & (kRing - 1)), src + w);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
 
 // acc + x[g * rows] * w[g] for g = 0 .. kGroup - 1 in order, every x
 // load issued before the first add.

@@ -9,16 +9,25 @@ window LUT emitting up to s_max symbols a step, with the inline
 canonical slow path for codes longer than K bits.
 
 Bound on the card: the dependent chain inside a chunk (2048 steps for
-B3, about 2048 / s̄ for B4), not bytes or operations.  One thread walks
-one chunk and a CTA is one warp, so a plane's 500 chunks spread over 16
-SMs; B4 holds its LUT as uint8 symbols and uint16 metadata, 80 KB of
-shared memory (see the source).  Both are simple and slow; making them
-fast is later work.
+B3, about 2048 / s̄ for B4), not bytes or operations; a call takes at
+least one chunk's chain times the time of a step.  B3 shortens the step
+and walks every chunk at once: it spreads a plane's chunks over every SM
+(ceil(NB / SMs) lanes a CTA, one lane a chunk), reads bits from registers
+fed by a shared-memory word ring that each lane fills a slice ahead with
+cp.async, decodes a step with one lookup in the book's
+2^``PREFIX_BITS``-entry prefix table (``Codebook.device_tables
+("prefix")``; for longer codes the canonical search, which runs beside
+the lookup and is picked with a select, not a branch), and
+writes its symbols out in coalesced 16-byte stores (the walker is B7's,
+``csrc/walk.cuh``).  B4 walks one chunk a thread in CTAs of one warp, so
+a plane's 500 chunks spread over 16 SMs; it holds its LUT as uint8
+symbols and uint16 metadata, 80 KB of shared memory (see the source).
+B4 is simple and slow; making it fast is later work.
 
 B6 (``decode_chunks_qlc``) replaces
 ``repro/kernels/decode.py::decode_chunks_qlc_pallas``: the table-free
 QLC walk (class from the window's top 2 bits, length and base from two
-packed scalars, symbol from a 256-entry table), on B3's scaffolding.
+packed scalars, symbol from a 256-entry table), on B4's scaffolding.
 
 Each has its plain-torch twin beside it: ``decode_chunks_canonical_plain``
 is the reference's ``decode_chunks_jit`` walk, ``decode_chunks_multisym_plain``
@@ -28,9 +37,12 @@ steps vectorised across chunks (both from ``core.encoder``), and
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..core.encoder import (DEFAULT_CHUNK, chunk_capacity_words,
+from ..core.encoder import (DEFAULT_CHUNK, PREFIX_BITS,
+                            canonical_prefix_table, chunk_capacity_words,
                             decode_chunks, decode_chunks_multisym as _multisym)
 from ..core.huffman import MAX_CODE_LEN
 from ..core.qlc import SYM_TAB_SIZE
@@ -72,13 +84,23 @@ def decode_chunks_canonical(block_words: torch.Tensor,
                             num_codes: torch.Tensor,
                             sorted_symbols: torch.Tensor, *,
                             chunk: int = DEFAULT_CHUNK,
-                            max_len: int = MAX_CODE_LEN) -> torch.Tensor:
+                            max_len: int = MAX_CODE_LEN,
+                            prefix: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Kernel B3 on CUDA tensors, the plain walk on CPU tensors.
 
     block_words (NB, cap) int32, chunk_counts (NB,) int32, the canonical
     tables as int32 → (NB, chunk) int32 symbols, zero past each count.
+    ``prefix`` is the book's one-lookup table, (2^PREFIX_BITS,) int16
+    (``Codebook.device_tables("prefix")``, which callers that hold a book
+    pass); without it the kernel's wrapper builds it from the tables
+    (``core.encoder.canonical_prefix_table``).  The result does not
+    depend on it: the plain walk takes no table.
     """
     tables = (first_code, base_index, num_codes, sorted_symbols)
+    if prefix is not None:
+        check(prefix, "prefix", torch.int16, block_words.device,
+              (1 << PREFIX_BITS,))
     if block_words.device.type == "cpu":
         return decode_chunks_canonical_plain(block_words, chunk_counts,
                                              *tables, chunk=chunk,
@@ -87,14 +109,22 @@ def decode_chunks_canonical(block_words: torch.Tensor,
         raise ValueError(f"no B3 kernel for device {block_words.device}")
     dev, nb, cap = _check_stream(block_words, chunk_counts, chunk, max_len,
                                  tables)
+    bits = bind("decode", "decode_canonical_prefix_bits", [])()
+    if bits != PREFIX_BITS:
+        raise RuntimeError(f"decode.cu looks up {bits}-bit prefixes, the "
+                           f"tables hold {PREFIX_BITS}")
+    if prefix is None:
+        prefix = canonical_prefix_table(tables, max_len)
+    if prefix.data_ptr() % 16:
+        raise ValueError("prefix must be 16-byte aligned")
     out = torch.empty((nb, chunk), dtype=torch.int32, device=dev)
     fn = bind("decode", "decode_canonical_launch",
-              [P, P, P, P, P, P, I, P, I, I, I, I, P])
+              [P, P, P, P, P, P, P, I, P, I, I, I, I, P])
     with torch.cuda.device(dev):
         err = fn(block_words.data_ptr(), chunk_counts.data_ptr(),
-                 *(t.data_ptr() for t in tables), sorted_symbols.numel(),
-                 out.data_ptr(), nb, chunk, cap, max_len,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 prefix.data_ptr(), *(t.data_ptr() for t in tables),
+                 sorted_symbols.numel(), out.data_ptr(), nb, chunk, cap,
+                 max_len, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "decode_chunks_canonical (B3)")
     count_launch("decode_chunks_canonical")
     return out

@@ -52,10 +52,12 @@ def encode_with_book(symbols: torch.Tensor, book, *,
 def decode_chunks(block_words: torch.Tensor, chunk_counts: torch.Tensor,
                   book, *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Chunked canonical decode (B3): (NB, cap) words → (NB, chunk)."""
+    dev = block_words.device
+    prefix = (book.device_tables("prefix", dev)[0] if dev.type == "cuda"
+              else None)
     return decode_chunks_canonical(
-        block_words, chunk_counts,
-        *book.device_tables("canonical", block_words.device),
-        chunk=chunk, max_len=book.max_len)
+        block_words, chunk_counts, *book.device_tables("canonical", dev),
+        chunk=chunk, max_len=book.max_len, prefix=prefix)
 
 
 def decode_chunks_multisym(block_words: torch.Tensor,
