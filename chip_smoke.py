@@ -13,18 +13,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 3. kernels against their plain-torch versions, bit for bit, at the main
    path's shapes: the 1 024 000 symbols per byte plane of a batch-4
    ``gemma2-2b`` decode step (real logits of the warm-up prefill), plus
-   an odd-chunk case (chunk 1001, an e4m3 plane), and B3 (with B1 and B2
-   to code it) on ``w_gate[0]``'s hi plane (33.5 M symbols, 16 384
-   chunks); each kernel is timed with CUDA events beside its plain
-   version (and, for B1, the one-call gather ``lut[sym]`` as a yardstick
-   the port never calls), and by the profiler's device events
-   (``device_ms``: the device's own time a call, where the events loop
-   also holds the host's), and B1's host time a call is read with
-   ``time.perf_counter`` over calls that do not wait for the device
-   (``host_us``); B1 and its yardstick, both host-bound, are read in
-   turns and keep their least reading.  A chain probe (one thread, dependent shared-memory
-   table lookups) measures the least time of one decode step, which
-   bounds B3, B4 and B6-B8.
+   an odd-chunk case (chunk 1001, an e4m3 plane); each kernel is timed
+   with CUDA events beside its plain version (and, for B1, the one-call
+   gather ``lut[sym]`` as a yardstick the port never calls), and by the
+   profiler's device events (``device_ms``: the device's own time a
+   call, where the events loop also holds the host's), and B1's host
+   time a call is read with ``time.perf_counter`` over calls that do not
+   wait for the device (``host_us``); B1 and its yardstick, both
+   host-bound, are read in turns and keep their least reading.  A chain
+   probe (one thread, dependent shared-memory table lookups) measures
+   the least time of one decode step, which bounds B3, B4 and B6-B8.
+   The chunk walkers (B3, B4, B6; with B1 and B2 to code their input)
+   also run on ``w_gate[0]``'s hi plane (33.5 M symbols, 16 384 chunks),
+   B4 and B6 on a KV-shaped call (chunk 512, as many chunks as the coded
+   serve's last read, 6840 a plane, held in phase 5 to the read that
+   serve made) and B6 on the odd-chunk plane, each
+   with its launch shape (chunks a CTA, warps, CTAs, CTAs an SM, waves),
+   ns a step and chain bound.
    The same for B5-B8 ("kernels vs plain (B5-B8)"): B5 (histogram) on
    the logits planes and on ``w_gate[0]``'s hi plane (33.5 M symbols),
    B6 (QLC decode) at chunk 2048 on the logits planes with QLC books from
@@ -416,25 +421,33 @@ def main() -> int:
                  for p, s in odd.items()}
     check_case("odd chunk (e4m3 plane)", odd, odd_books, ODD_CHUNK,
                time_it=False)
-    b3_store = check_b3_store_plane(torch, dev, params, int_ops_per_s, sms)
-    stats["decode_chunks_canonical"]["mismatches"] += b3_store["mismatches"]
+    step_ns = chain_step_ns(torch, probe, dev)
+    print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
+    walks = check_walkers(torch, dev, params, cfg, odd, int_ops_per_s,
+                          step_ns, sms)
+    for k, cases in walks.items():
+        st = stats.setdefault(k, {"mismatches": 0, "max_abs_err": 0})
+        for r in cases.values():
+            st["mismatches"] += r["mismatches"]
+            st["max_abs_err"] = max(st["max_abs_err"], r["max_abs_err"])
     for k, s in stats.items():
         need(s["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {s}")
-    step_ns = chain_step_ns(torch, probe, dev)
-    print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
-    b3_store.update(chain_step_ns=step_ns,
-                    chain_bound_ms=CHUNK * step_ns * 1e-6)
-    b3_fields = dict(ns_per_step=timing["decode_chunks_canonical"]["ms"]
-                     * 1e6 / CHUNK,
-                     **b3_launch_shape(main_enc["lo"][3][0].shape[0], sms))
-    for tag, r in (("logits plane", dict(timing["decode_chunks_canonical"],
-                                         **b3_fields)),
-                   ("w_gate[0] hi plane", b3_store)):
-        print(f"  decode_chunks_canonical {tag}: {r['ms']:.4f} ms (device "
-              f"{r['device_ms']:.4f}), {r['ns_per_step']:.2f} ns a step, "
-              f"{r['chunks_per_cta']} chunks a CTA, {r['ctas']} CTAs, "
-              f"{r['ctas_per_sm']} a SM, {r['waves']} wave(s) [{card}]")
+    bounds = kernel_bounds(torch, main_enc, CHUNK, chunk_capacity_words,
+                           int_ops_per_s, step_ns)
+    nb_logits = main_enc["lo"][3][0].shape[0]
+    logits_fields = {
+        k: dict(ns_per_step=timing[k]["ms"] * 1e6
+                / bounds[k][2]["chain_steps_per_chunk"],
+                **launch_shape(k, nb_logits, sms))
+        for k in ("decode_chunks_canonical", "decode_chunks_multisym")}
+    for k, f in logits_fields.items():
+        print_walk(k, "logits plane", dict(
+            timing[k], **f, chain_bound_ms=bounds[k][2]["chain_bound_ms"]),
+            card)
+    for k, cases in walks.items():
+        for tag, r in cases.items():
+            print_walk(k, tag, r, card)
     t = timing["encode_lookup"]
     print(f"  encode_lookup: {t['ms']:.5f} ms a call (device "
           f"{t['device_ms']:.5f}, {t['device_events_per_call']:g} device "
@@ -453,6 +466,8 @@ def main() -> int:
               f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
         need(r["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {r['mismatches']} mismatching elements")
+    print_walk("decode_chunks_qlc", "logits plane",
+               new_kernels["decode_chunks_qlc"], card)
     for k in ("decode_matmul", "decode_matmul_qlc"):
         for tag, r in new_kernels[k]["by_matrix"].items():
             print(f"  {k} {tag}: {r['ms']:.4f} ms (device "
@@ -565,10 +580,17 @@ def main() -> int:
     print(json.dumps({"card": card, "coded_at_rest": coded}))
     need(coded["status"] == "ok", "coded-at-rest serve: a check failed "
          "(see the record above)")
+    kv_case = {walks[k][f"kv call {p} plane"]["chunks"]
+               for k in ("decode_chunks_multisym", "decode_chunks_qlc")
+               for p in ("lo", "hi")}
     for codec in ("huffman", "qlc"):
         r = coded[codec]
         need(r["coded_steps"] == NEW - 1, f"{codec}: {r['coded_steps']} "
              f"coded decode steps")
+        need(kv_case == {r["kv_last_read_chunks"]}, f"{codec}: the "
+             f"KV-shaped calls of phase 3 ({kv_case} chunks) are not the "
+             f"coded serve's last read ({r['kv_last_read_chunks']} chunks "
+             f"a plane)")
         print(f"{codec}: param ratio {r['param_hbm_ratio']:.4f}, kv ratio "
               f"{r['kv_hbm_ratio']:.4f}, coded step "
               f"{r['coded_step_ms_median']:.3f} ms (median), one step "
@@ -597,14 +619,12 @@ def main() -> int:
         "decode_chunks_multisym": ("B4", "decode.cu",
                                    "src/repro/kernels/decode.py:218"),
     }
-    bounds = kernel_bounds(torch, main_enc, CHUNK, chunk_capacity_words,
-                           int_ops_per_s, step_ns)
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
         bound_s, bound_by, extra = bounds[k]
-        if k == "decode_chunks_canonical":     # B7's fields, and the store
-            extra = dict(extra, **b3_fields, store_plane=b3_store)  # plane
+        if k in logits_fields:          # the walkers' shapes and cases
+            extra = dict(extra, **logits_fields[k], walks=walks[k])
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
@@ -628,6 +648,11 @@ def main() -> int:
     }
     for k, (tag, src, replaces) in new_meta.items():
         r = dict(new_kernels[k])
+        if k in walks:
+            r.update(mismatches=r["mismatches"] + stats[k]["mismatches"],
+                     max_abs_err=max(r["max_abs_err"],
+                                     stats[k]["max_abs_err"]),
+                     walks=walks[k])
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
@@ -641,6 +666,15 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_walk(kname: str, tag: str, r: dict, card: str) -> None:
+    """One line of a decode kernel's case: time, step, launch shape."""
+    print(f"  {kname} {tag}: {r['ms']:.4f} ms (device {r['device_ms']:.4f}),"
+          f" {r['ns_per_step']:.2f} ns a step, {r['chunks_per_cta']} chunks "
+          f"a CTA ({r['walker_warps_per_cta']} warps), {r['ctas']} CTAs, "
+          f"{r['ctas_per_sm']} a SM, {r['waves']} wave(s), chain bound "
+          f"{r['chain_bound_ms']:.4f} ms [{card}]")
 
 
 def timed_once(torch, fn):
@@ -669,72 +703,176 @@ def used_words(bits):
     return int(((bits.long() + 31) // 32 + 1).sum())
 
 
-def b3_launch_shape(nb: int, sms: int) -> dict:
-    """B3's launch for ``nb`` chunks, as its C entry chooses it: chunks
-    (walker lanes) a CTA, walker warps a CTA, CTAs, dynamic shared memory
-    a CTA, CTAs an SM holds at once, and waves."""
+SHAPE_ENTRIES = {"decode_chunks_canonical": "decode_canonical_shape",
+                 "decode_chunks_multisym": "decode_multisym_shape",
+                 "decode_chunks_qlc": "decode_qlc_shape"}
+
+
+def launch_shape(kname: str, nb: int, sms: int) -> dict:
+    """The launch of decode kernel ``kname`` (B3, B4 or B6) for ``nb``
+    chunks, as its C entry chooses it: chunks (walker lanes) a CTA,
+    walker warps a CTA, CTAs, dynamic shared memory a CTA, CTAs an SM
+    holds at once, and waves."""
     import ctypes
     from repro_torch.kernels.build import I, P, bind
     shape = (ctypes.c_int * 5)()
-    err = bind("decode", "decode_canonical_shape", [I, P])(
+    err = bind("decode", SHAPE_ENTRIES[kname], [I, P])(
         nb, ctypes.addressof(shape))
-    need(err == 0, f"B3 launch-shape query failed ({err})")
+    need(err == 0, f"{kname} launch-shape query failed ({err})")
     per_cta, warps, ctas, smem, per_sm = list(shape)
-    need(per_sm > 0, "B3: no CTA fits an SM")
+    need(per_sm > 0, f"{kname}: no CTA fits an SM")
     return {"chunks_per_cta": per_cta, "walker_warps_per_cta": warps,
             "ctas": ctas, "smem_bytes_per_cta": smem, "ctas_per_sm": per_sm,
             "waves": -(-ctas // (per_sm * sms))}
 
 
-def check_b3_store_plane(torch, dev, params, int_ops_per_s, sms) -> dict:
-    """B3 on ``w_gate[0]``'s hi plane (33.5 M symbols: 16 384 chunks at
-    CHUNK, far more than SMs), with a book from the plane's own counts:
-    coded by B1 + B2, decoded by B3 and by its plain version, held bit for
-    bit and to the plane, and timed (CUDA events, the profiler)."""
-    from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.encoder import (PREFIX_BITS, chunk_counts_for,
-                                          concat_chunks)
-    from repro_torch.core.symbols import bf16_planes
-    from repro_torch.kernels import decode, histogram, ops
-    t0 = time.perf_counter()
-    sym = bf16_planes(params["groups"][0][0]["ffn"]["w_gate"][0])["hi"]
-    hist = histogram.histogram256(sym).cpu()
-    book = build_codebook(hist.numpy())
-    words, bits = ops.encode_with_book(sym, book, chunk=CHUNK)
-    cc = chunk_counts_for(sym.numel(), CHUNK)
+def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
+              sms) -> dict:
+    """Decode kernel ``kname`` (B3, B4 or B6) on one symbol plane: coded
+    by B1 + B2 with ``book``, decoded by the kernel and by its plain
+    version, held bit for bit and to the plane, and timed (CUDA events,
+    the profiler), with its launch shape, its chain (the longest chunk's
+    steps: symbols for B3/B6, windows for B4) and its bounds on this
+    data."""
+    from repro_torch.core.encoder import PREFIX_BITS, chunk_counts_for
+    from repro_torch.core.encoder import concat_chunks
+    from repro_torch.core.huffman import MULTISYM_K, MULTISYM_SMAX
+    from repro_torch.core.qlc import qlc_kernel_args
+    from repro_torch.kernels import decode, ops
+    words, bits = ops.encode_with_book(sym, book, chunk=chunk)
+    cc = chunk_counts_for(sym.numel(), chunk)
     counts = torch.from_numpy(cc).to(dev)
-    canon = book.device_tables("canonical", dev)
-    (pre,) = book.device_tables("prefix", dev)
+    n, nb = sym.numel(), words.shape[0]
+    nbits = int(bits.to(torch.int64).sum())
+    stream_bytes = used_words(bits) * 4 + nb * 4 + nb * chunk * 4
+    canonical_bytes = (3 * 17 + 256) * 4
+    steps = int(counts.max())
+    extra = {}
+    if kname == "decode_chunks_qlc":
+        args = qlc_kernel_args(book, dev)
 
-    def run():
-        return decode.decode_chunks_canonical(words, counts, *canon,
-                                              chunk=CHUNK, prefix=pre)
+        def run():
+            return decode.decode_chunks_qlc(words, counts, *args, chunk=chunk)
 
+        def plain():
+            return decode.decode_chunks_qlc_plain(words, counts, *args,
+                                                  chunk=chunk)
+        bound, by = least_ms(stream_bytes + 256 * 4, 16 * n, int_ops_per_s)
+        extra["qlc_class_lengths"] = book.class_lengths
+    else:
+        canon = book.device_tables("canonical", dev)
+        lens = torch.from_numpy(book.lengths.astype("int64")).to(dev)[
+            sym.long()]
+        cut = PREFIX_BITS
+        if kname == "decode_chunks_multisym":
+            lut = book.device_tables("multisym", dev)
+
+            def run():
+                return decode.decode_chunks_multisym(words, counts, *lut,
+                                                     *canon, chunk=chunk)
+
+            def plain():
+                return decode.decode_chunks_multisym_plain(
+                    words, counts, *lut, *canon, chunk=chunk)
+            win = multisym_windows(torch, lens, chunk, MULTISYM_K,
+                                   MULTISYM_SMAX)
+            steps, windows = int(win.max()), int(win.sum())
+            bound, by = least_ms(stream_bytes + canonical_bytes
+                                 + (1 << MULTISYM_K) * (MULTISYM_SMAX + 2),
+                                 12 * windows + 3 * n, int_ops_per_s)
+            extra["windows"] = windows
+            cut = MULTISYM_K
+        else:
+            (pre,) = book.device_tables("prefix", dev)
+
+            def run():
+                return decode.decode_chunks_canonical(words, counts, *canon,
+                                                      chunk=chunk, prefix=pre)
+
+            def plain():
+                return decode.decode_chunks_canonical_plain(
+                    words, counts, *canon, chunk=chunk)
+            bound, by = least_ms(stream_bytes + canonical_bytes
+                                 + 2 * (1 << PREFIX_BITS),
+                                 8 * n + 5 * nbits, int_ops_per_s)
+        extra.update(max_code_len=int(book.lengths.max()),
+                     slow_step_share=float((lens > cut).sum()) / n)
     got = run()
-    want, plain_ms = timed_once(torch, lambda: (
-        decode.decode_chunks_canonical_plain(words, counts, *canon,
-                                             chunk=CHUNK)))
-    bad = int((got != want).sum())
-    need(torch.equal(concat_chunks(got, cc), sym), "B3 w_gate[0] hi plane: "
-         "the kernel does not round-trip the plane")
+    want, plain_ms = timed_once(torch, plain)
+    bad, err = compare(torch, (got,), (want,))
+    need(torch.equal(concat_chunks(got, cc), sym), f"{kname}: the kernel "
+         f"does not round-trip the plane")
     ms = cuda_ms(torch, run, 10)
     d_ms, _ = device_ms(torch, run, 10)
-    nb, n = words.shape[0], sym.numel()
-    nbits = int(bits.to(torch.int64).sum())
-    bound, by = least_ms(used_words(bits) * 4 + nb * 4 + (3 * 17 + 256) * 4
-                         + 2 * (1 << PREFIX_BITS) + nb * CHUNK * 4,
-                         8 * n + 5 * nbits, int_ops_per_s)
-    slow = torch.from_numpy(book.lengths > PREFIX_BITS)
-    print(f"B3 w_gate[0] hi plane: {n} symbols, {nb} chunks, mismatches "
-          f"{bad}, codes {int(book.lengths.min())}..{int(book.lengths.max())}"
-          f" bits ({time.perf_counter() - t0:.1f} s)")
-    return {"symbols": n, "chunks": nb, "mismatches": bad, "ms": ms,
-            "device_ms": d_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "chain_steps_per_chunk": CHUNK,
-            "ns_per_step": ms * 1e6 / CHUNK,
-            "max_code_len": int(book.lengths.max()),
-            "slow_step_share": float(hist[slow].sum() / n),
-            **b3_launch_shape(nb, sms)}
+    return {"symbols": n, "chunks": nb, "chunk": chunk, "mismatches": bad,
+            "max_abs_err": err, "ms": ms, "device_ms": d_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "chain_steps_per_chunk": steps, "chain_step_ns": step_ns,
+            "chain_bound_ms": steps * step_ns * 1e-6,
+            "ns_per_step": ms * 1e6 / steps, **extra,
+            **launch_shape(kname, nb, sms)}
+
+
+def kv_call_planes(torch, dev, params, cfg) -> dict:
+    """The symbols of a KV-shaped decode call: the byte planes (lo, hi)
+    of the K and V of the model's cache node over the PROMPT + NEW - 1
+    positions that the coded serve's last read holds (a prefill of that
+    many seeded tokens), one stream a plane: as many chunks of
+    DEFAULT_KV_CHUNK as that read decodes a plane if its segments (the
+    prompt's and one a decode step) are whole chunks.  Phase 5 holds the
+    count to the read that the coded serve made (``kv_last_read_chunks``
+    of its record)."""
+    from repro_torch.core.symbols import bf16_planes
+    from repro_torch.models import prefill
+    slots = PROMPT + NEW - 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, slots), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        _, caches = prefill(params, {"tokens": tokens}, cfg, PROMPT + NEW)
+    (node,) = [n for group in caches for n in group]
+    kv = [node[x][:, :, :slots] for x in ("k", "v")]
+    return {p: torch.cat([bf16_planes(t)[p].reshape(-1) for t in kv])
+            for p in ("lo", "hi")}
+
+
+def check_walkers(torch, dev, params, cfg, odd, int_ops_per_s, step_ns,
+                  sms) -> dict:
+    """The chunk walkers beyond the logits planes, each against its plain
+    version: B3, B4 and B6 on ``w_gate[0]``'s hi plane (33.5 M symbols,
+    16 384 chunks at CHUNK, far more than SMs) with the plane's own
+    Huffman book and a QLC book from the same counts; B4 and B6 on a
+    KV-shaped call (chunk 512, the coded serve's last read); B6 on the
+    odd-chunk e4m3 plane (chunk 1001), where B1-B4 ran.  Returns kernel ->
+    case -> record."""
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.symbols import bf16_planes
+    from repro_torch.kernels import histogram
+    from repro_torch.memstore.kvstore import DEFAULT_KV_CHUNK
+    t0 = time.perf_counter()
+    out = {k: {} for k in SHAPE_ENTRIES}
+
+    def books_of(sym):
+        hist = histogram.histogram256(sym).cpu().numpy()
+        return build_codebook(hist), build_codebook(hist, codec="qlc")
+
+    def run(tag, sym, chunk, kernels):
+        huff, qlc = books_of(sym)
+        for k in kernels:
+            book = qlc if k == "decode_chunks_qlc" else huff
+            out[k][tag] = walk_case(torch, dev, k, sym, book, chunk,
+                                    int_ops_per_s, step_ns, sms)
+
+    gate_hi = bf16_planes(params["groups"][0][0]["ffn"]["w_gate"][0])["hi"]
+    run("w_gate[0] hi plane", gate_hi, CHUNK, tuple(SHAPE_ENTRIES))
+    for p, sym in kv_call_planes(torch, dev, params, cfg).items():
+        run(f"kv call {p} plane", sym, DEFAULT_KV_CHUNK,
+            ("decode_chunks_multisym", "decode_chunks_qlc"))
+    for p, sym in odd.items():
+        run(f"odd chunk {p} plane", sym, ODD_CHUNK, ("decode_chunks_qlc",))
+    print(f"walkers beyond the logits planes: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
@@ -826,8 +964,9 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         "library_ms": None, "device_ms": dev_ms, "library_device_ms": None,
         "chain_steps_per_chunk": CHUNK,
         "chain_step_ns": step_ns, "chain_bound_ms": CHUNK * step_ns * 1e-6,
-        "symbols": n, "chunks": nb,
-        "qlc_class_lengths": {p: b.class_lengths for p, b in books.items()}}
+        "ns_per_step": ms * 1e6 / CHUNK, "symbols": n, "chunks": nb,
+        "qlc_class_lengths": {p: b.class_lengths for p, b in books.items()},
+        **launch_shape("decode_chunks_qlc", nb, sms)}
 
     # ---- B7 / B8: fused decode + matmul on three layer-0 matrices
     import ctypes

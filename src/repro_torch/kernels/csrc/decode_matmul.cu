@@ -37,15 +37,16 @@
 //     words into its own ring in shared memory with cp.async, a slice
 //     ahead of its reader, so no load address depends on the code just
 //     decoded and the walker never waits for device memory.  The reader
-//     clamps its word index to cap - 2 as window32 does (the chunk's pad
-//     word).
+//     clamps its word index to cap - 2 as the reference does (the chunk's
+//     pad word).
 //   * B7 decodes a step with one lookup: a 2^kPrefixBits-entry table of
 //     `symbol | length << 8` per plane (uint16, 8 KB each, in shared
 //     memory) resolves every code of at most kPrefixBits bits; an entry
 //     0 sends the longer codes to canonical_first, unchanged.  B8's step
-//     stays the table-free QLC step: shifts and one byte permute for the
-//     length; its one load, the symbol, is taken a step later, off the
-//     chain, as each step stores the symbol of the step before.
+//     is the table-free QLC step (walk.cuh's QlcStep, shared with B6):
+//     shifts and one byte permute for the length; its one load, the
+//     symbol, is taken a step later, off the chain, as each step stores
+//     the symbol of the step before.
 //   * The product streams through a ring of two slots of kSlice decoded
 //     bf16 values per chunk (each walker writes its byte of them): the
 //     walkers fill one slot while the consumers multiply the other into
@@ -71,8 +72,8 @@
 
 namespace {
 
-// The walker's parts (walk.cuh): the word ring, the bit reader and the
-// prefix table's lookup.
+// The walker's parts (walk.cuh): the word ring, the bit reader, the
+// prefix table's lookup and the QLC step.
 using repro::BitReader;
 using repro::copies_done;
 using repro::kAhead;
@@ -80,6 +81,7 @@ using repro::kPrefix;
 using repro::kPrefixBits;
 using repro::kRingStride;
 using repro::kSlice;
+using repro::QlcStep;
 using repro::stage_words;
 
 constexpr int kGroup = 32;          // chunks per CTA = walker lanes
@@ -142,33 +144,6 @@ struct CanonicalStep {
   }
   __device__ __forceinline__ uint32_t symbol(uint32_t e) const {
     return e & 0xFFu;
-  }
-};
-
-// B8: the table-free QLC step of walk_qlc.  The class is the window's
-// top 2 bits, its length a byte of len_pack (one byte permute), the
-// index the next l - 2 bits; the entry is the symbol table's pointer and
-// the length, and symbol() the one load, which the walker takes a step
-// later, off the chain.
-struct QlcStep {
-  uint32_t len_pack, base_pack;
-  const int32_t* st;          // shared, 256 entries
-
-  __device__ __forceinline__ uint32_t lookup(uint32_t win) const {
-    const uint32_t cls = win >> 30;
-    const uint32_t l = __byte_perm(len_pack, 0u, cls | 0x4440u);
-    const uint32_t idx = __funnelshift_rc(win << 2, 0u, 34u - l);
-    const uint32_t base =
-        cls == 0u ? 0u : (base_pack >> ((cls - 1u) * 10u)) & 0x3FFu;
-    return l | (min(base + idx, 255u) << 8);
-  }
-  __device__ __forceinline__ int length(uint32_t e) const {
-    return static_cast<int>(e & 0xFFu);
-  }
-  __device__ __forceinline__ bool slow(uint32_t) const { return false; }
-  __device__ __forceinline__ uint32_t resolve(uint32_t) const { return 0u; }
-  __device__ __forceinline__ uint32_t symbol(uint32_t e) const {
-    return static_cast<uint32_t>(st[e >> 8]) & 0xFFu;
   }
 };
 

@@ -6,34 +6,40 @@ B3 (``decode_chunks_canonical``) replaces
 walk, one symbol a step.  B4 (``decode_chunks_multisym``) replaces
 ``repro/kernels/decode.py::decode_chunks_multisym_pallas``: a K-bit
 window LUT emitting up to s_max symbols a step, with the inline
-canonical slow path for codes longer than K bits.
+canonical search for codes longer than K bits.  B6 (``decode_chunks_qlc``)
+replaces ``repro/kernels/decode.py::decode_chunks_qlc_pallas``: the
+table-free QLC walk (class from the window's top 2 bits, length and base
+from two packed scalars, symbol from a 256-entry table).
 
 Bound on the card: the dependent chain inside a chunk (2048 steps for
-B3, about 2048 / s̄ for B4), not bytes or operations; a call takes at
-least one chunk's chain times the time of a step.  B3 shortens the step
-and walks every chunk at once: it spreads a plane's chunks over every SM
-(ceil(NB / SMs) lanes a CTA, one lane a chunk), reads bits from registers
-fed by a shared-memory word ring that each lane fills a slice ahead with
-cp.async, decodes a step with one lookup in the book's
+B3 and B6, about 2048 / s̄ windows for B4), not bytes or operations; a
+call takes at least one chunk's chain times the time of a step.  The
+three share one walker, which shortens the step and walks every chunk at
+once: it spreads a plane's chunks over every SM (ceil(NB / SMs) lanes a
+CTA, one lane a chunk, up to four walker warps), reads bits from
+registers fed by a shared-memory word ring that each lane fills a slice
+ahead with cp.async (``csrc/walk.cuh``, B7's reader), keeps every load
+and branch off the chain, and writes its symbols out in coalesced
+16-byte stores.  A B3 step is one lookup in the book's
 2^``PREFIX_BITS``-entry prefix table (``Codebook.device_tables
 ("prefix")``; for longer codes the canonical search, which runs beside
-the lookup and is picked with a select, not a branch), and
-writes its symbols out in coalesced 16-byte stores (the walker is B7's,
-``csrc/walk.cuh``).  B4 walks one chunk a thread in CTAs of one warp, so
-a plane's 500 chunks spread over 16 SMs; it holds its LUT as uint8
-symbols and uint16 metadata, 80 KB of shared memory (see the source).
-B4 is simple and slow; making it fast is later work.
-
-B6 (``decode_chunks_qlc``) replaces
-``repro/kernels/decode.py::decode_chunks_qlc_pallas``: the table-free
-QLC walk (class from the window's top 2 bits, length and base from two
-packed scalars, symbol from a 256-entry table), on B4's scaffolding.
+the lookup and is picked with a select).  A B6 step is B8's QLC step:
+the length from a byte permute of a register, no load.  A B4 step is one
+lookup of the window's top K bits in the LUT's meta, the canonical
+search beside it for first codes longer than K bits, and its symbols one
+8-byte load a step later; its slices are cut by symbols, so a window
+that runs past a slice carries its symbols into the next.  B4 holds its
+LUT as uint8 symbols and uint16 metadata (80 KB of shared memory a CTA)
+and takes only the LUT that ``Codebook.device_tables("multisym")``
+builds, K = ``MULTISYM_K`` and s_max = ``MULTISYM_SMAX``.
 
 Each has its plain-torch twin beside it: ``decode_chunks_canonical_plain``
 is the reference's ``decode_chunks_jit`` walk, ``decode_chunks_multisym_plain``
-runs B4's own algorithm — LUT step, slow path, emit — as a loop over
+runs B4's algorithm — LUT step, slow path, emit — as a loop over
 steps vectorised across chunks (both from ``core.encoder``), and
-``decode_chunks_qlc_plain`` is ``core.qlc``'s walk.
+``decode_chunks_qlc_plain`` is ``core.qlc``'s walk.  The shape entries
+(``decode_*_shape`` in the C library) report each kernel's launch for a
+chunk count.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import torch
 from ..core.encoder import (DEFAULT_CHUNK, PREFIX_BITS,
                             canonical_prefix_table, chunk_capacity_words,
                             decode_chunks, decode_chunks_multisym as _multisym)
-from ..core.huffman import MAX_CODE_LEN
+from ..core.huffman import MAX_CODE_LEN, MULTISYM_K, MULTISYM_SMAX
 from ..core.qlc import SYM_TAB_SIZE
 from ..core.qlc import decode_chunks_qlc as _qlc
 from .build import I, P, U, bind, check, count_launch, raise_on
@@ -141,7 +147,10 @@ def decode_chunks_multisym(block_words: torch.Tensor,
 
     As ``decode_chunks_canonical`` plus the book's compact LUT
     (``Codebook.device_tables("multisym", device)``): syms (2^k, s_max)
-    uint8 and meta (2^k,) int16 holding ``count | bits << 8``.
+    uint8 and meta (2^k,) int16 holding ``count | bits << 8``.  The
+    plain version takes any k and s_max; the kernel only k =
+    ``MULTISYM_K``, s_max = ``MULTISYM_SMAX`` (the LUT every book
+    builds), and raises ``ValueError`` on any other.
     """
     tables = (first_code, base_index, num_codes, sorted_symbols)
     if block_words.device.type == "cpu":
@@ -152,14 +161,11 @@ def decode_chunks_multisym(block_words: torch.Tensor,
         raise ValueError(f"no B4 kernel for device {block_words.device}")
     dev, nb, cap = _check_stream(block_words, chunk_counts, chunk, max_len,
                                  tables)
-    size, s_max = syms.shape
-    k = size.bit_length() - 1
-    if (1 << k) != size or not 3 <= k < max_len:
-        raise ValueError(f"multisym table size {size} must be 2^k with "
-                         f"3 <= k < max_len")
-    if (size * s_max) % 16:
-        raise ValueError(f"syms table of {size * s_max} B is not a "
-                         f"multiple of 16 B")
+    size, s_max = 1 << MULTISYM_K, MULTISYM_SMAX
+    if tuple(syms.shape) != (size, s_max):
+        raise ValueError(f"B4 takes the LUT of MULTISYM_K = {MULTISYM_K}, "
+                         f"MULTISYM_SMAX = {MULTISYM_SMAX}: syms must be "
+                         f"{(size, s_max)}, got {tuple(syms.shape)}")
     check(syms, "syms", torch.uint8, dev)
     check(meta, "meta", torch.int16, dev, (size,))
     for name, t in (("syms", syms), ("meta", meta)):
@@ -172,7 +178,7 @@ def decode_chunks_multisym(block_words: torch.Tensor,
         err = fn(block_words.data_ptr(), chunk_counts.data_ptr(),
                  syms.data_ptr(), meta.data_ptr(),
                  *(t.data_ptr() for t in tables), sorted_symbols.numel(),
-                 out.data_ptr(), nb, chunk, cap, k, s_max, max_len,
+                 out.data_ptr(), nb, chunk, cap, MULTISYM_K, s_max, max_len,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "decode_chunks_multisym (B4)")
     count_launch("decode_chunks_multisym")

@@ -195,6 +195,7 @@ def memstore_check(cfg=None, params=None, *, device=None, batch: int = 2,
             toks_c, totals = stage("generate", lambda: eng.generate(
                 prompt, new_tokens))
             tokens_equal = bool((toks_c == toks_raw).all())
+            read_chunks = sum(eng._kv.last_read_chunks.values())
             steps = sorted(m["step_seconds"] for m in eng.step_metrics)
             launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                         if LAUNCHES[k] != before[k]}
@@ -219,6 +220,7 @@ def memstore_check(cfg=None, params=None, *, device=None, batch: int = 2,
             "coded_step_ms_median": (steps[len(steps) // 2] * 1e3
                                      if steps else None),
             "coded_steps": len(steps),
+            "kv_last_read_chunks": read_chunks,
             "launches": launches,
             "one_coded_step": step_count,
         }

@@ -127,6 +127,7 @@ class CodedKVStore:
         self._pos: Dict[str, np.ndarray] = {}
         self._pos_dev: Dict[str, torch.Tensor] = {}
         self._raw: Dict[str, Any] = {}
+        self.last_read_chunks: Dict[str, int] = {}
 
     def _ensure_books(self, arrays) -> None:
         """Build the books from the first ingest's K/V data when none were
@@ -208,7 +209,11 @@ class CodedKVStore:
     def read(self, like):
         """Rebuild the cache tree by decoding every segment (in ingest
         order) into zero-initialised k/v tensors — the exact inverse of
-        the ``attn_cache_init`` + slot-write path."""
+        the ``attn_cache_init`` + slot-write path.  ``last_read_chunks``
+        then maps each coded node to the chunks that each byte plane's
+        decode call of this read took."""
+        self.last_read_chunks = {}
+
         def rebuild(name, node):
             if not _coded(node):
                 return self._raw.get(name, node)
@@ -216,10 +221,13 @@ class CodedKVStore:
             v = torch.zeros_like(node["v"])
             segs = self._segments.get(name, [])
             if segs:
-                sym = {p: decode_plane_streams(
-                           [s for seg in segs for s in (seg.k_planes[p],
-                                                        seg.v_planes[p])],
-                           self.books[p], backend=self.backend)
+                streams = {p: [s for seg in segs for s in (seg.k_planes[p],
+                                                           seg.v_planes[p])]
+                           for p in PLANES}
+                self.last_read_chunks[name] = sum(
+                    len(s.bit_counts) for s in streams[PLANES[0]])
+                sym = {p: decode_plane_streams(streams[p], self.books[p],
+                                               backend=self.backend)
                        for p in PLANES}
                 axis = k.dim() - 3
                 for i, seg in enumerate(segs):

@@ -5,14 +5,18 @@ Every table and code is held equal with ``np.array_equal``; the plain
 B1/B2 are held to the reference's Pallas kernels in interpret mode (as
 ``tests/test_kernels.py`` runs them), the plain B3/B4 to the reference's
 scan walk and multisym Pallas kernel.  B3's kernel step (one lookup in
-the book's prefix table, the canonical search where the entry is 0) is
-spelled out here as a numpy walk and held to the reference's walk.
+the book's prefix table, the canonical search where the entry is 0) and
+B4's (one K-bit meta lookup, the search beside it, staging and slices
+cut by symbols) are spelled out here as numpy walks: B3's held to the
+reference's walk, B4's to its bit-serial ``decode_np`` at every chunk
+and its multisym Pallas kernel in interpret mode at chunk 2048.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -22,7 +26,7 @@ from repro.core.codebook import (CodebookRegistry as RefRegistry,  # noqa: E402
                                  build_codebook as ref_build,
                                  registry_content_hash as ref_hash)
 from repro.core.encoder import (decode_chunks_jit,  # noqa: E402
-                                decode_chunks_multisym_jit,
+                                decode_chunks_multisym_jit, decode_np,
                                 encode_chunked_jit, multisym_table_args)
 from repro.kernels.bitpack import pack_blocks_pallas  # noqa: E402
 from repro.kernels.decode import decode_chunks_multisym_pallas  # noqa: E402
@@ -31,6 +35,8 @@ from repro.kernels.encode import encode_lookup_pallas  # noqa: E402
 from repro_torch.core import symbols  # noqa: E402
 from repro_torch.core.codebook import (CodebookRegistry,  # noqa: E402
                                        build_codebook, registry_content_hash)
+from repro_torch.core.huffman import (MULTISYM_K,  # noqa: E402
+                                      MULTISYM_SMAX)
 from repro_torch.core.encoder import (PREFIX_BITS,  # noqa: E402
                                       canonical_prefix_table,
                                       chunk_counts_for,
@@ -216,6 +222,16 @@ def test_plain_b4_slow_path_long_codes():
     assert not got.numpy()[1, 499:].any()
 
 
+def _window(w, pos, cap):
+    """The 32 stream bits at each chunk's cursor, the word index clamped
+    to cap - 2 as the kernels' reader clamps it."""
+    rows = np.arange(w.shape[0])
+    widx = np.minimum(pos >> 5, cap - 2)
+    pair = (w[rows, widx] << np.uint64(32)) | w[rows, widx + 1]
+    return ((pair << (pos & 31).astype(np.uint64)) >> np.uint64(32)
+            ).astype(np.int64)
+
+
 def _prefix_walk(words, counts, tables, prefix, chunk, max_len):
     """Kernel B3's walk in numpy, every chunk at once: per step the 32
     stream bits at the cursor (the word index clamped to cap - 2, as the
@@ -230,15 +246,11 @@ def _prefix_walk(words, counts, tables, prefix, chunk, max_len):
     fc, bi, nc, ss = (np.asarray(t, np.int64) for t in tables)
     ss = ss[np.minimum(np.arange(256), ss.size - 1)]
     pre = np.asarray(prefix, np.int64) & 0xFFFF
-    rows = np.arange(nb)
     pos = np.zeros(nb, np.int64)
     out = np.zeros((nb, chunk), np.int64)
     for k in range(chunk):
         live = k < counts
-        widx = np.minimum(pos >> 5, cap - 2)
-        pair = (w[rows, widx] << np.uint64(32)) | w[rows, widx + 1]
-        win = ((pair << (pos & 31).astype(np.uint64)) >> np.uint64(32)
-               ).astype(np.int64)
+        win = _window(w, pos, cap)
         e = pre[win >> (32 - PREFIX_BITS)]
         length, sym = e >> 8, e & 0xFF
         slow = np.nonzero(length == 0)[0]
@@ -259,6 +271,7 @@ def _prefix_walk(words, counts, tables, prefix, chunk, max_len):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _b3_books():
     """A steep geometric book (codes up to 16 bits, most over
     PREFIX_BITS), a book of max_len 10 (every prefix entry decided) and a
@@ -314,3 +327,139 @@ def test_b3_prefix_step_walk_matches_reference(name, chunk, n):
         got_w = decode_chunks_canonical(tw, tc, *canon, chunk=chunk,
                                         max_len=max_len, **kw)
         np.testing.assert_array_equal(got_w.numpy(), want)
+
+
+SLICE = 64          # the symbols of a staged slice (walk.cuh's kSlice)
+
+
+def _multisym_walk(words, counts, syms, meta, tables, chunk, max_len):
+    """Kernel B4's walk in numpy, every chunk at once.  A step looks up
+    the window's top K bits in meta (``count | bits << 8``); beside it
+    the canonical search runs over lengths K+1..max_len, falling back to
+    length K + 1 (the reference's argmax over an all-false vector) with
+    sorted_symbols padded to 256 by its last entry, and a count of 0
+    takes the search's length and one symbol (with K >= max_len there is
+    no search: length 0, symbol 0).  A step stages its LUT row's S bytes
+    at the chunk's row byte q, the rest of the last word they touch
+    zeroed, as the kernel's three word stores leave it.  Slices are cut
+    by symbols: a chunk walks until it has decoded k0 + SLICE symbols or
+    its count; then positions past the count are zeroed, the slice is
+    written out from byte r (the row's misalignment), and the bytes past
+    it move to the row's front for the next slice."""
+    w = words.view(np.uint32).astype(np.uint64)
+    nb, cap = w.shape
+    size, s = syms.shape
+    k = size.bit_length() - 1
+    fc, bi, nc, ss = (np.asarray(t, np.int64) for t in tables)
+    ss = ss[np.minimum(np.arange(256), ss.size - 1)]
+    meta = np.asarray(meta, np.int64) & 0xFFFF
+    syms = np.asarray(syms, np.uint8)
+    rows = np.zeros((nb, 76), np.uint8)
+    r = (np.arange(nb) * chunk) & 3
+    pos = np.zeros(nb, np.int64)         # the cursor's bit
+    done = np.zeros(nb, np.int64)        # symbols decoded
+    out = np.zeros((nb, chunk), np.int64)
+    for k0 in range(0, chunk, SLICE):
+        k1 = min(k0 + SLICE, chunk)
+        end = np.minimum(k0 + SLICE, counts)
+        q = r + done - k0
+        while True:
+            live = np.nonzero(done < end)[0]
+            if not live.size:
+                break
+            win = _window(w[live], pos[live], cap)
+            m = meta[win >> (32 - k)]
+            cnt, adv = m & 0xFF, m >> 8
+            row = syms[win >> (32 - k)].astype(np.int64)      # (live, s)
+            slow = cnt == 0
+            if k < max_len:
+                top = win >> (32 - max_len)
+                sl = np.full(live.size, k + 1)
+                off = (top >> (max_len - k - 1)) - fc[k + 1]
+                found = np.zeros(live.size, bool)
+                for ln in range(k + 1, max_len + 1):
+                    o = (top >> (max_len - ln)) - fc[ln]
+                    hit = ~found & (o >= 0) & (o < nc[ln])
+                    sl, off = np.where(hit, ln, sl), np.where(hit, o, off)
+                    found |= hit
+                ssym = ss[np.clip(bi[sl] + off, 0, 255)]
+            else:
+                sl, ssym = np.zeros(live.size, np.int64), 0
+            row = np.where(slow[:, None], 0, row)
+            row[:, 0] = np.where(slow, ssym, row[:, 0])
+            ql = q[live]
+            for j in range(s):
+                rows[live, ql + j] = row[:, j]
+            for j in range(s, s + 4):            # the last word's rest
+                tail = (ql + j) < ((ql >> 2) + 3) * 4
+                rows[live[tail], (ql + j)[tail]] = 0
+            n = np.where(slow, 1, cnt)
+            pos[live] += np.where(slow, sl, adv)
+            q[live] += n
+            done[live] += n
+        for c in range(nb):
+            rows[c, r[c] + max(counts[c], k0) - k0:r[c] + k1 - k0] = 0
+            out[c, k0:k1] = rows[c, r[c]:r[c] + k1 - k0]
+        rows[:, :12] = rows[:, SLICE:SLICE + 12]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _b4_books():
+    """B3's steep and one-symbol books (max_len 16: the search over
+    lengths 14-16 runs beside the lookup) and the steep counts limited
+    to max_len 13 = MULTISYM_K (the kernel's walk with no search)."""
+    books = _b3_books()
+    steep = np.maximum((2.0 ** -np.arange(256) * 2 ** 40).astype(np.int64), 1)
+    return {"steep": books["steep"], "one_symbol": books["one_symbol"],
+            "len13": (build_codebook(steep, max_len=MULTISYM_K),
+                      books["steep"][1])}
+
+
+def _oracle_rows(words, counts, book, chunk):
+    """Each chunk decoded by the reference's bit-serial ``decode_np``,
+    zeros past its count."""
+    out = np.zeros((words.shape[0], chunk), np.int64)
+    for i, (row, c) in enumerate(zip(words.view(np.uint32), counts)):
+        out[i, :c] = decode_np(row, int(c), book)
+    return out
+
+
+@pytest.mark.parametrize("chunk,n", [(31, 100), (512, 1300), (1001, 1100),
+                                     (2048, 2100)])
+@pytest.mark.parametrize("name", ["steep", "len13", "one_symbol"])
+def test_b4_multisym_step_walk_matches_reference(name, chunk, n):
+    book, sym = _b4_books()[name]
+    sym = sym[:n]
+    max_len = book.max_len
+    mt = book.multisym_tables()           # K = 13, s_max = 8: the kernel's
+    assert mt.syms.shape == (1 << MULTISYM_K, MULTISYM_SMAX)
+    if name == "steep":
+        assert (book.lengths[sym] > MULTISYM_K).any()   # the search runs
+    if name == "len13":
+        assert max_len == book.lengths.max() == MULTISYM_K
+    tw, _ = encode_chunked_rows(torch.from_numpy(sym),
+                                torch.from_numpy(book.codes),
+                                torch.from_numpy(book.lengths), chunk=chunk,
+                                max_len=max_len)
+    counts = chunk_counts_for(n, chunk)
+    want = _oracle_rows(tw.numpy(), counts, book, chunk)
+    got = _multisym_walk(tw.numpy(), counts, mt.syms, mt.meta,
+                         book.device_tables("canonical", CPU), chunk, max_len)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.concatenate([r[:c] for r, c in zip(want, counts)]), sym)
+    if chunk == 2048:
+        # the Pallas kernel at the logits plane's chunk: one interpret-mode
+        # compile a max_len (sorted_symbols zero-padded to 256, as the
+        # kernel pads it); the other chunks hold the walk to the oracle
+        t = book.tables
+        ss = np.zeros(256, np.int32)
+        ss[:t.sorted_symbols.size] = t.sorted_symbols
+        np.testing.assert_array_equal(got, np.asarray(
+            decode_chunks_multisym_pallas(
+                jnp.asarray(tw.numpy().view(np.uint32)), jnp.asarray(counts),
+                jnp.asarray(mt.syms), jnp.asarray(mt.meta),
+                *(jnp.asarray(x) for x in (t.first_code, t.base_index,
+                                           t.num_codes, ss)),
+                chunk=chunk, max_len=max_len, interpret=True)))

@@ -279,9 +279,15 @@ def test_kv_round_trip_and_ledger_equal_reference(codec):
     cache = ((tree_map(lambda a: tensor_from_numpy(np.asarray(a), "cpu"),
                        dict(node)),),)
     kv = CodedKVStore(codec=codec, chunk=96, device="cpu")
-    assert kv.ingest(cache) == int((np.asarray(node["pos"]) >= 0).any(0).sum())
+    slots = int((np.asarray(node["pos"]) >= 0).any(0).sum())
+    assert kv.ingest(cache) == slots
     back = kv.read(cache)
     _assert_trees_equal(back, cache)
+    # one segment: its K and V streams, each whole chunks of 96
+    k = cache[0][0]["k"]
+    per_slot = k.numel() // k.shape[-3]
+    assert list(kv.last_read_chunks.values()) == [
+        2 * -(-slots * per_slot // 96)]
     assert (kv.kv_hbm_raw_bits, kv.kv_hbm_coded_bits) == (
         rkv.kv_hbm_raw_bits, rkv.kv_hbm_coded_bits)
     for p in ("lo", "hi"):

@@ -6,8 +6,11 @@ codes, class lengths and bases, ``len_pack`` / ``base_pack``,
 ``sym_tab``) with the codec-aware content hash; the port's chunked words
 equal ``encode_chunked_jit``'s; streams decode across packages in both
 directions, and B6's plain walk equals the reference's bit-serial oracle
-``decode_chunks_qlc_ref`` (zeros past each count included).  B5's plain
-version is held to ``histogram256_pallas`` in interpret mode, as
+``decode_chunks_qlc_ref`` (zeros past each count included); B6's kernel
+step (a byte permute for the length, a funnel shift for the index) is
+spelled out as a numpy walk and held to that oracle at every chunk and
+to ``decode_chunks_qlc_pallas`` in interpret mode at chunk 2048.  B5's
+plain version is held to ``histogram256_pallas`` in interpret mode, as
 ``tests/test_kernels.py`` runs it.
 """
 import pytest
@@ -23,6 +26,7 @@ from repro.core.encoder import (ChunkedStream as RefStream,  # noqa: E402
                                 encode_chunked_jit)
 from repro.core.qlc import build_qlc_book as ref_build_qlc  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels.decode import decode_chunks_qlc_pallas  # noqa: E402
 from repro.kernels.histogram import histogram256_pallas  # noqa: E402
 from repro.kernels.ref import decode_chunks_qlc_ref  # noqa: E402
 
@@ -32,7 +36,8 @@ from repro_torch.core.codebook import (build_codebook,  # noqa: E402
 from repro_torch.core.codec import (CODECS, default_codec,  # noqa: E402
                                     get_codec, set_default_codec)
 from repro_torch.core.encoder import (ChunkedStream,  # noqa: E402
-                                      decode_chunked, encode_chunked)
+                                      chunk_counts_for, decode_chunked,
+                                      encode_chunked, encode_chunked_rows)
 from repro_torch.core.qlc import (build_qlc_book,  # noqa: E402
                                   qlc_book_from_lengths, qlc_kernel_args)
 from repro_torch.kernels import ops  # noqa: E402
@@ -122,6 +127,73 @@ def test_qlc_words_equal_reference_and_decode_across_packages(chunk):
     for backend in backends:
         np.testing.assert_array_equal(
             np.asarray(ref_decode_chunked(rs, rb, backend=backend)), sym)
+
+
+def _qlc_walk(words, counts, len_pack, base_pack, sym_tab, chunk):
+    """Kernel B6's step (walk.cuh's QlcStep) in numpy, every chunk at
+    once: the 32 stream bits at the cursor (the word index clamped to
+    cap - 2), the class from their top 2 bits, the length as byte `class`
+    of len_pack (the byte permute), the index as the window shifted left
+    by 2 and right by 34 - l with the shift clamped to 32 (the funnel
+    shift: 0 for l = 2), the base 10 bits of base_pack for classes 1..3,
+    the symbol sym_tab[min(base + index, 255)]; zeros past each count."""
+    w = words.view(np.uint32).astype(np.uint64)
+    nb, cap = w.shape
+    st = np.zeros(256, np.int64)
+    st[:sym_tab.size] = sym_tab
+    rows = np.arange(nb)
+    pos = np.zeros(nb, np.int64)
+    out = np.zeros((nb, chunk), np.int64)
+    for k in range(chunk):
+        live = k < counts
+        widx = np.minimum(pos >> 5, cap - 2)
+        pair = (w[rows, widx] << np.uint64(32)) | w[rows, widx + 1]
+        win = (pair << (pos & 31).astype(np.uint64)) >> np.uint64(32)
+        cls = (win >> np.uint64(30)).astype(np.int64)
+        length = (len_pack >> (8 * cls)) & 0xFF
+        shifted = (win << np.uint64(2)) & np.uint64(0xFFFFFFFF)
+        idx = (shifted >> np.minimum(34 - length, 32).astype(np.uint64)
+               ).astype(np.int64)
+        base = np.where(cls == 0, 0,
+                        (base_pack >> (10 * np.maximum(cls - 1, 0))) & 0x3FF)
+        out[:, k] = np.where(live, st[np.minimum(base + idx, 255)], 0)
+        pos = np.where(live, pos + length, pos)
+    return out
+
+
+@pytest.mark.parametrize("chunk,n", [(31, 100), (512, 1300), (1001, 1100),
+                                     (2048, 2100)])
+@pytest.mark.parametrize("kind", ["random", "one_symbol", "uniform256",
+                                  "e4m3"])
+def test_b6_qlc_step_walk_matches_pallas(kind, chunk, n):
+    counts = _counts(kind, 5)
+    book = build_qlc_book(counts)
+    rng = np.random.default_rng(chunk)
+    sym = rng.choice(256, size=n, p=counts / counts.sum()).astype(np.uint8)
+    tw, _ = encode_chunked_rows(torch.from_numpy(sym),
+                                torch.from_numpy(book.codes.astype(np.int32)),
+                                torch.from_numpy(book.lengths.astype(np.int32)),
+                                chunk=chunk)
+    words = tw.numpy().view(np.uint32)
+    cc = chunk_counts_for(n, chunk)
+    want = decode_chunks_qlc_ref(words, cc, book.class_lengths,
+                                 book.class_bases, book.sym_tab, chunk)
+    got = _qlc_walk(tw.numpy(), cc, book.len_pack(), book.base_pack(),
+                    book.sym_tab, chunk)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        np.concatenate([r[:c] for r, c in zip(want, cc)]), sym)
+    if chunk == 2048:
+        # the Pallas kernel at the logits plane's chunk: one interpret-mode
+        # compile for the four books (sym_tab zero-padded to 256, as the
+        # kernel pads it); the other chunks hold the walk to the oracle
+        st = np.zeros(256, np.int32)
+        st[:book.sym_tab.size] = book.sym_tab
+        np.testing.assert_array_equal(got, np.asarray(
+            decode_chunks_qlc_pallas(jnp.asarray(words), jnp.asarray(cc),
+                                     book.len_pack(), book.base_pack(),
+                                     jnp.asarray(st), chunk=chunk,
+                                     interpret=True)))
 
 
 @pytest.mark.parametrize("n", [1, 4095, 4097, 10_001])
