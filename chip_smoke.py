@@ -31,7 +31,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    with its launch shape (chunks a CTA, warps, CTAs, CTAs an SM, waves),
    ns a step and chain bound.
    The same for B5-B8 ("kernels vs plain (B5-B8)"): B5 (histogram) on
-   the logits planes and on ``w_gate[0]``'s hi plane (33.5 M symbols),
+   the logits planes, ``w_gate[0]``'s planes (33.5 M symbols), a plane
+   of one value (2^25 symbols), views from bytes 1, 7 and 15 and lengths
+   0, 1, 17 and 2^20 + 3, checked to be one device operation a call,
+   timed on ``w_gate[0]`` in turns with the match probe (B5's other
+   design: warp-aggregated shared atomics, a source kept here as a
+   string) and as the store finds the plane (warm, right after the
+   split) and after 128 MB of other traffic (cold), and on an empty
+   plane (the cost of a call before it counts a symbol);
    B6 (QLC decode) at chunk 2048 on the logits planes with QLC books from
    the same logits, B7/B8 (fused decode + matmul, Huffman / QLC) on three
    layer-0 matrices at full width (``w_down[0]`` at chunk 4096,
@@ -116,6 +123,140 @@ extern "C" int chain_launch(const void* table, int size, long long steps,
 }
 """
 
+# B5's two other designs, timed beside it on the same planes (the caller
+# zeroes ``out``; whole 512-byte tiles, 16-byte aligned, only).
+#
+# The match probe: warp-aggregated atomics.
+# Each warp keeps its own 256 bins in shared memory; the lanes that hold
+# the same symbol find each other (__match_any_sync) and one of them adds
+# their number with one shared atomic.  Per-block bins go to the output
+# with 64-bit atomics.  Every lane of a warp stays in the loop.
+MATCH_PROBE_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void __launch_bounds__(256)
+match_kernel(const uint4* __restrict__ vec, long long n_vec,
+             unsigned long long* __restrict__ out) {
+  __shared__ uint32_t s[8 * 256];
+  for (int i = threadIdx.x; i < 8 * 256; i += 256) s[i] = 0u;
+  __syncthreads();
+  uint32_t* bins = s + (threadIdx.x >> 5) * 256;
+  const int lane = threadIdx.x & 31;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n_vec;
+       i += gridDim.x * 256ll) {
+    const uint4 v = __ldg(vec + i);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t b = (w[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+      const unsigned peers = __match_any_sync(0xffffffffu, b);
+      if (lane == __ffs(peers) - 1) atomicAdd(&bins[b], __popc(peers));
+    }
+  }
+  __syncthreads();
+  uint32_t sum = 0;
+  for (int w = 0; w < 8; ++w) sum += s[w * 256 + threadIdx.x];
+  if (sum) atomicAdd(&out[threadIdx.x], static_cast<unsigned long long>(sum));
+}
+
+extern "C" int match_launch(const void* sym, long long n_vec, void* out,
+                            int grid, void* stream) {
+  match_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(sym), n_vec,
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+# The private probe: per-thread counters, no two lanes on one address.
+# Each thread owns a column of 256 8-bit counters in shared memory (64 KB
+# a block): bin b of thread t is byte b & 3 of the word at byte offset
+# (b >> 2) * 1024 + 4t, one shared atomic add a symbol into the thread's
+# own word; every 15 loads (240 symbols) a flush sums the columns into
+# 32-bit bins, four threads a word in 16-bit lanes, and zeroes them.
+PRIVATE_PROBE_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ void add(uint8_t* c, uint32_t off, uint32_t inc) {
+  atomicAdd(reinterpret_cast<uint32_t*>(c + off), inc);
+}
+
+__device__ __forceinline__ void count4(uint8_t* c, uint32_t col,
+                                       uint32_t col_hi, uint32_t v) {
+  const uint32_t vb = (v & 0xFCFCFCFCu) | col_hi;
+  const uint32_t vs = (v & 0x03030303u) << 3;
+  add(c, __byte_perm(col, vb, 0x2240), __funnelshift_l(0u, 1u, vs));
+  add(c, __byte_perm(col, vb, 0x2250), __funnelshift_l(0u, 1u, vs >> 8));
+  add(c, __byte_perm(col, vb, 0x2260), __funnelshift_l(0u, 1u, vs >> 16));
+  add(c, __byte_perm(col, vb, 0x2270), __funnelshift_l(0u, 1u, vs >> 24));
+}
+
+__device__ uint32_t flush(uint8_t* c, bool zero) {
+  const int t = threadIdx.x, lane = t & 31;
+  uint4* row = reinterpret_cast<uint4*>(c + (t >> 2) * 1024 + (t & 3) * 256);
+  uint32_t lo = 0, hi = 0;
+  for (int k = 0; k < 16; ++k) {
+    const int j = (k + lane) & 15;
+    const uint4 x = row[j];
+    if (zero) row[j] = make_uint4(0u, 0u, 0u, 0u);
+    lo += (x.x & 0x00FF00FFu) + (x.y & 0x00FF00FFu) + (x.z & 0x00FF00FFu) +
+          (x.w & 0x00FF00FFu);
+    hi += __byte_perm(x.x, 0, 0x4341) + __byte_perm(x.y, 0, 0x4341) +
+          __byte_perm(x.z, 0, 0x4341) + __byte_perm(x.w, 0, 0x4341);
+  }
+  lo += __shfl_xor_sync(0xffffffffu, lo, 1);
+  lo += __shfl_xor_sync(0xffffffffu, lo, 2);
+  hi += __shfl_xor_sync(0xffffffffu, hi, 1);
+  hi += __shfl_xor_sync(0xffffffffu, hi, 2);
+  const uint32_t v = (t & 1) ? hi : lo;
+  return (t & 2) ? v >> 16 : v & 0xFFFFu;
+}
+
+__global__ void __launch_bounds__(256, 3)
+private_kernel(const uint4* __restrict__ vec, long long n_vec,
+               unsigned long long* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t c[];
+  const int t = threadIdx.x;
+  const uint32_t col = 4u * t, col_hi = (t >> 6) * 0x01010101u;
+  for (int w = 0; w < 64; ++w)
+    *reinterpret_cast<uint32_t*>(c + w * 1024 + col) = 0u;
+  const long long stride = gridDim.x * 256ll;
+  const long long rounds = (n_vec + stride - 1) / stride;
+  uint32_t total = 0;
+  for (long long r = 0; r < rounds; ++r) {
+    const long long i = blockIdx.x * 256ll + t + r * stride;
+    if (i < n_vec) {
+      const uint4 v = __ldg(vec + i);
+      count4(c, col, col_hi, v.x);
+      count4(c, col, col_hi, v.y);
+      count4(c, col, col_hi, v.z);
+      count4(c, col, col_hi, v.w);
+    }
+    if ((r + 1) % 15 == 0 && r + 1 < rounds) {
+      __syncthreads();
+      total += flush(c, true);
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  total += flush(c, false);
+  if (total) atomicAdd(&out[t], static_cast<unsigned long long>(total));
+}
+
+extern "C" int private_launch(const void* sym, long long n_vec, void* out,
+                              int grid, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      private_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 65536);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  private_kernel<<<grid, 256, 65536, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(sym), n_vec,
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 class SmokeError(RuntimeError):
     pass
@@ -144,11 +285,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int):
-    """(device ms a call, device events a call) of ``fn`` from
-    torch.profiler's device events: the summed time of every kernel,
-    memset and copy that ``reps`` calls (after one warm-up) launched, over
-    ``reps``.  Unlike ``cuda_ms``, no host time is in it."""
+def device_events(torch, fn, reps: int) -> dict:
+    """name -> (device us, count) of every kernel, memset and copy that
+    ``reps`` calls of ``fn`` (after one warm-up) ran, summed over the
+    calls, from torch.profiler's device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -158,14 +298,37 @@ def device_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, events = 0.0, 0
+    out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        us += e.self_cuda_time_total if t is None else t
-        events += e.count
-    return us / 1e3 / reps, events / reps
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            out[e.key] = (e.self_cuda_time_total if t is None else t,
+                          e.count)
+    return out
+
+
+def device_ms(torch, fn, reps: int):
+    """(device ms a call, device events a call) of ``fn``: the summed
+    time of every device operation it runs.  Unlike ``cuda_ms``, no host
+    time is in it."""
+    ev = device_events(torch, fn, reps).values()
+    return (sum(us for us, _ in ev) / 1e3 / reps,
+            sum(n for _, n in ev) / reps)
+
+
+def device_ops(torch, fn, reps: int = 20) -> dict:
+    """name -> device operations a call of ``fn`` runs, over ``reps``
+    calls."""
+    return {k: n / reps
+            for k, (_, n) in device_events(torch, fn, reps).items()}
+
+
+def kernel_ms(torch, prep, fn, key: str, reps: int = 20) -> float:
+    """Device ms a call of the kernels named like ``key`` that ``fn(x)``
+    runs, x = ``prep()`` made anew on the same stream before each call
+    (so ``prep`` sets what the call finds in the cache)."""
+    ev = device_events(torch, lambda: fn(prep()), reps)
+    return sum(us for k, (us, _) in ev.items() if key in k) / 1e3 / reps
 
 
 def host_us(torch, fn, reps: int = 200, rounds: int = 3) -> float:
@@ -264,15 +427,24 @@ def main() -> int:
     # ----------------------------------------------------------- 2. build
     phase("build")
     t0 = time.perf_counter()
-    probe_job = start_chain_probe(build)
+    import ctypes
+    jobs = [start_probe(build, "chain_probe", CHAIN_PROBE_CU),
+            start_probe(build, "match_probe", MATCH_PROBE_CU),
+            start_probe(build, "private_probe", PRIVATE_PROBE_CU)]
     try:
         libs = build.build_all()
     except BaseException:
-        probe_job[0].kill()
-        probe_job[0].wait()
+        for _, proc, _ in jobs:
+            proc.kill()
+            proc.wait()
         raise
-    probe = finish_chain_probe(probe_job)
-    print(f"built {sorted(libs)} and the chain probe in "
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    probe = finish_probe(jobs[0], "chain_launch",
+                         [P, ctypes.c_int, LL, P, P])
+    b5_probes = {name: finish_probe(job, f"{name}_launch",
+                                    [P, LL, P, ctypes.c_int, P])
+                 for name, job in (("match", jobs[1]), ("private", jobs[2]))}
+    print(f"built {sorted(libs)} and the chain, match and private probes in "
           f"{time.perf_counter() - t0:.3f} s")
     for src, log in sorted(build.build_logs().items()):
         for line in log.splitlines():       # -Xptxas -v, kernel by kernel
@@ -458,7 +630,7 @@ def main() -> int:
     phase("kernels vs plain (B5-B8)")
     t0 = time.perf_counter()
     new_kernels = check_b5_to_b8(torch, dev, params, step_logits,
-                                 int_ops_per_s, step_ns, sms)
+                                 int_ops_per_s, step_ns, sms, b5_probes)
     for k, r in new_kernels.items():
         print(f"{k}: mismatches {r['mismatches']}, max abs err "
               f"{r['max_abs_err']}, {r['ms']:.4f} ms (device "
@@ -466,6 +638,28 @@ def main() -> int:
               f"{r['bound_ms']:.5f} by {r['bound_by']}) [{card}]")
         need(r["mismatches"] == 0, f"kernel {k} disagrees with its plain "
              f"version: {r['mismatches']} mismatching elements")
+    r = new_kernels["histogram256"]
+    print(f"  histogram256: {r['cases']} cases bit for bit; one call "
+          f"{r['device_ops_per_call']} on the device; w_gate[0] hi "
+          f"{r['w_gate0_hi_ms']:.4f} ms (device "
+          f"{r['w_gate0_hi_device_ms']:.4f}; warm "
+          f"{r['w_gate0_hi_warm_ms']:.4f}, cold "
+          f"{r['w_gate0_hi_cold_ms']:.4f}), lo {r['w_gate0_lo_ms']:.4f}"
+          f" ms (device {r['w_gate0_lo_device_ms']:.4f}), bound "
+          f"{r['w_gate0_bound_ms']:.5f}; match probe hi "
+          f"{r['w_gate0_hi_match_probe_ms']:.4f}, lo "
+          f"{r['w_gate0_lo_match_probe_ms']:.4f} ms; private probe hi "
+          f"{r['w_gate0_hi_private_probe_ms']:.4f}, lo "
+          f"{r['w_gate0_lo_private_probe_ms']:.4f} ms; one value "
+          f"{r['one_value_device_ms']:.4f}, empty plane "
+          f"{r['empty_plane_device_ms']:.4f} ms (device); wave "
+          f"{r.get('wave_ctas')} CTAs, CTAs on logits "
+          f"{r.get('grid_logits')}, w_gate[0] {r.get('grid_w_gate0')} "
+          f"[{card}]")
+    b5_ops = r["device_ops_per_call"]
+    need(sum(b5_ops.values()) == 1
+         and not any("emset" in k for k in b5_ops),
+         f"B5: one call ran {b5_ops} on the device, not one kernel")
     print_walk("decode_chunks_qlc", "logits plane",
                new_kernels["decode_chunks_qlc"], card)
     for k in ("decode_matmul", "decode_matmul_qlc"):
@@ -876,7 +1070,7 @@ def check_walkers(torch, dev, params, cfg, odd, int_ops_per_s, step_ns,
 
 
 def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
-                   step_ns, sms):
+                   step_ns, sms, b5_probes):
     """B5-B8 against their plain versions at the main path's shapes (see
     the module docstring), each timed by CUDA events beside its plain
     version and its yardstick.  Returns kernel -> its record fields."""
@@ -894,8 +1088,16 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
     w_gate0 = layer0["ffn"]["w_gate"][0]
 
     # ---- B5: exact 256-bin counts
-    cases = dict(planes)
-    cases["w_gate[0] hi"] = bf16_planes(w_gate0)["hi"]
+    gate = bf16_planes(w_gate0)
+    cases = {"logits lo": planes["lo"], "logits hi": planes["hi"],
+             "w_gate[0] hi": gate["hi"], "w_gate[0] lo": gate["lo"],
+             # the worst skew: every symbol in one bin of every counter
+             "one value, 2^25 symbols": torch.full(
+                 (1 << 25,), 0x3F, dtype=torch.uint8, device=dev)}
+    for off in (1, 7, 15):              # views starting at any byte
+        cases[f"logits lo from byte {off}"] = planes["lo"][off:]
+    for n in (0, 1, 17, (1 << 20) + 3):  # ragged lengths
+        cases[f"w_gate[0] lo[:{n}]"] = gate["lo"][:n]
     bad = err = 0
     for tag, sym in cases.items():
         got, want = histogram.histogram256(sym), histogram.histogram256_plain(
@@ -905,6 +1107,7 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         err = max(err, int(d.max()))
         need(int(got.sum()) == sym.numel(), f"B5 {tag}: counts sum "
              f"{int(got.sum())} != {sym.numel()}")
+    dev_ops = device_ops(torch, lambda: histogram.histogram256(gate["hi"]))
     each = list(planes.values())
     n = each[0].numel()
     ms = cuda_ms(torch, lambda: [histogram.histogram256(s) for s in each],
@@ -917,17 +1120,65 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
                                        for s in each], 50)[0] / 2
     lib_dev_ms = device_ms(torch, lambda: [torch.bincount(s, minlength=256)
                                            for s in each], 50)[0] / 2
-    gate_hi = cases["w_gate[0] hi"]
-    gate_ms = cuda_ms(torch, lambda: histogram.histogram256(gate_hi), 20)
     bound, by = least_ms(n + 256 * 8, 2 * n, int_ops_per_s)
-    gate_bound, _ = least_ms(gate_hi.numel() + 256 * 8, 2 * gate_hi.numel(),
-                             int_ops_per_s)
-    out["histogram256"] = {
-        "mismatches": bad, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-        "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
-        "symbols": n, "w_gate0_hi_symbols": gate_hi.numel(),
-        "w_gate0_hi_ms": gate_ms, "w_gate0_hi_bound_ms": gate_bound}
+    gate_bound, _ = least_ms(gate["hi"].numel() + 256 * 8,
+                             2 * gate["hi"].numel(), int_ops_per_s)
+    rec = {"mismatches": bad, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms, "device_ms": dev_ms,
+           "library_device_ms": lib_dev_ms, "symbols": n,
+           "device_ops_per_call": dev_ops, "cases": len(cases),
+           "w_gate0_symbols": gate["hi"].numel(),
+           "w_gate0_bound_ms": gate_bound}
+    # w_gate[0]'s planes (33.5 M symbols): B5 and its two probes in
+    # turns, each plane's device time, and hi as the store finds it:
+    # right after the split (warm) and after 128 MB of other traffic
+    # (cold: more than the 50 MB L2).
+    need(gate["hi"].numel() % 512 == 0, "B5 probes: whole 512-byte tiles")
+    p_out = torch.zeros(256, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    probe_grid = {"match": 8 * sms, "private": 3 * sms}
+
+    def probe(name, sym):
+        e = b5_probes[name](sym.data_ptr(), sym.numel() // 16,
+                            p_out.data_ptr(), probe_grid[name], stream)
+        need(e == 0, f"{name} probe: launch failed with cudaError_t {e}")
+
+    for p in ("hi", "lo"):
+        for name in b5_probes:
+            p_out.zero_()
+            probe(name, gate[p])
+            need(torch.equal(p_out, histogram.histogram256_plain(gate[p])),
+                 f"{name} probe: wrong counts on w_gate[0] {p}")
+        kern, *probe_ms = interleaved(
+            (lambda: histogram.histogram256(gate[p]),
+             *(lambda name=name: probe(name, gate[p]) for name in b5_probes)),
+            lambda f: cuda_ms(torch, f, 20))
+        rec[f"w_gate0_{p}_ms"] = kern
+        for name, t in zip(b5_probes, probe_ms):
+            rec[f"w_gate0_{p}_{name}_probe_ms"] = t
+        rec[f"w_gate0_{p}_device_ms"] = device_ms(
+            torch, lambda: histogram.histogram256(gate[p]), 20)[0]
+    # the worst skew, and what a call costs before it counts a symbol
+    rec["one_value_device_ms"] = device_ms(
+        torch, lambda: histogram.histogram256(cases["one value, 2^25 "
+                                                    "symbols"]), 20)[0]
+    rec["empty_plane_device_ms"] = device_ms(
+        torch, lambda: histogram.histogram256(gate["lo"][:0]), 50)[0]
+    sink = torch.empty(1 << 25, dtype=torch.float32, device=dev)
+    rec["w_gate0_hi_warm_ms"] = kernel_ms(
+        torch, lambda: bf16_planes(w_gate0)["hi"], histogram.histogram256,
+        "histogram256")
+    rec["w_gate0_hi_cold_ms"] = kernel_ms(
+        torch, lambda: (sink.add_(1.0), gate["hi"])[1],
+        histogram.histogram256, "histogram256")
+    if hasattr(histogram, "launch_grid"):   # an older B5 can be timed too
+        wave = histogram.wave_ctas(dev.index)
+        rec.update(wave_ctas=wave,
+                   grid_logits=histogram.launch_grid(n, wave),
+                   grid_w_gate0=histogram.launch_grid(gate["hi"].numel(),
+                                                      wave))
+    out["histogram256"] = rec
 
     # ---- B6: QLC decode at chunk 2048, books from the same logits
     books = {p: build_codebook(histogram.histogram256(s).cpu().numpy(),
@@ -1186,34 +1437,33 @@ def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
             "port_kernels_ms_per_step": port}
 
 
-def start_chain_probe(build):
-    """Start nvcc on the chain probe, into the kernels' build directory."""
-    out = build.build_dir() / "chain_probe"
+def start_probe(build, name: str, source: str):
+    """Start nvcc on a probe's source, into the kernels' build directory."""
+    out = build.build_dir() / name
     out.mkdir(parents=True, exist_ok=True)
-    src = out / "chain_probe.cu"
-    src.write_text(CHAIN_PROBE_CU)
-    lib = out / "libchain_probe.so"
+    src = out / f"{name}.cu"
+    src.write_text(source)
+    lib = out / f"lib{name}.so"
     proc = subprocess.Popen(
         [build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, lib
+    return name, proc, lib
 
 
-def finish_chain_probe(job):
-    """Wait for the probe's nvcc and bind its C entry."""
+def finish_probe(job, entry: str, argtypes):
+    """Wait for a probe's nvcc and bind its C entry ``entry``."""
     import ctypes
-    proc, lib = job
+    name, proc, lib = job
     try:
         out, _ = proc.communicate(timeout=600)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
         raise
-    need(proc.returncode == 0, f"nvcc failed on the chain probe:\n{out}")
-    fn = ctypes.CDLL(str(lib)).chain_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    need(proc.returncode == 0, f"nvcc failed on the {name}:\n{out}")
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 

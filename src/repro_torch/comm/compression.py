@@ -17,6 +17,7 @@ import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.codebook import Codebook, CodebookRegistry
@@ -102,6 +103,15 @@ class CompressionSpec:
     @property
     def enabled(self) -> bool:
         return self.mode != "off" and self.plane_lengths is not None
+
+    def lengths_for(self, plane: str) -> np.ndarray:
+        """The 256 code lengths of ``plane`` (int32)."""
+        return np.asarray(dict(self.plane_lengths)[plane], dtype=np.int32)
+
+    @classmethod
+    def off(cls) -> "CompressionSpec":
+        """The spec that codes nothing (every collective's default)."""
+        return cls(mode="off")
 
     @classmethod
     def from_registry(cls, registry: CodebookRegistry, tensor_kind: str,
