@@ -62,8 +62,39 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    step on it with bit-identical logits, and ``Engine(param_store=...,
    kv_mode="coded")`` generating the raw engine's 32 x 4 tokens; with its
    own launch counts (B1, B2, B4-B8 must all run);
-6. the last lines: one ``{"kernels": [...]}`` record (B1-B8), then
-   ``{"ok": true, "device": {...}}``.
+6. compressed collectives (``repro_torch.comm``) on a loopback ring of
+   4 ranks stacked on one card, at ``gemma2-2b`` width: a data-parallel
+   gradient all-reduce of one layer's ``w_gate`` shape (2048 x 16 384 bf16
+   a rank, N(0, 1e-3^2), books from an earlier draw) by
+   ``ring_all_reduce`` (carry ``wire`` and ``f32``, backends ``multisym``
+   and ``scan``), ``ring_reduce_scatter``, the 2 x 2
+   ``hierarchical_all_reduce`` and an integer-valued payload; the wire
+   serve's step logits vocab-sharded over the ranks, gathered by
+   ``ring_all_gather`` and the chunked and monolithic transports; a
+   prefill hidden state (4 x 64 x 2048 a rank) through
+   ``ring_all_to_all``; and ``launch.dryrun.ring_check`` at 8 ranks under
+   both codecs.  Launch counts are reset before and read after these
+   (``launches_by_path["ring"]``): B1, B2 and the hop decoder (B4, B3
+   under ``scan``, B6 for QLC books) once a plane a hop, B5 for the
+   payload probe.  Checked: the coded rings equal an uncoded loopback
+   ring (the same hop schedule and adds) bit for bit, the integer payload
+   ``torch.sum``, the gathers and the permute their inputs; every hop's
+   ``hop_coded_bits`` equals B5's histogram . lengths of what it ships;
+   ``raw_wire_bits`` the analytic 2(n-1)/n (all_reduce) or (n-1)/n
+   (reduce_scatter) of the payload.  Each op is timed (CUDA events;
+   profiler device time) with its coded/raw per hop, and a hop's parts
+   (decode, add, recode, the loopback move) on their own; that hop's
+   B1 -> B2 words and bits, for whole segments and for segments one
+   symbol short, equal the plain versions' on CPU copies.  Every op also
+   runs on CPU copies (the plain versions) at the logits size (1 024 000
+   bf16 a rank; the all-to-all on the hidden state), with one e4m3
+   all_reduce whose sums pass 448: the words of each hop, the stats and
+   the results must be equal bit for bit, and the e4m3 sums hold NaNs.
+   B3, B4 and B6 also walk a monolithic
+   stream (one chunk of 1 024 000 symbols).  On one card a loopback hop
+   moves no bytes over a link: the times are the codec's cost a hop;
+7. the last lines: one ``{"ring": ...}`` record, one ``{"kernels":
+   [...]}`` record (B1-B8), then ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -797,6 +828,12 @@ def main() -> int:
     print(f"coded-at-rest launches {coded_launches}, peak memory "
           f"{coded['peak_memory_gb']:.2f} GB [{card}]")
 
+    # ------------------------------ 6. compressed collectives (ring)
+    phase("compressed collectives (loopback ring of 4 ranks)")
+    ring, ring_launches = ring_phase(torch, dev, params, cfg, books,
+                                     step_logits, warm, card, build)
+    torch.cuda.empty_cache()
+
     if "--profile" in sys.argv[1:]:
         phase("profile (torch.profiler, device timeline)")
         prof = {k: profile_steps(torch, params, cfg, prompts, spec)
@@ -822,9 +859,10 @@ def main() -> int:
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
-            "launches": launches[k] + coded_launches[k],
+            "launches": launches[k] + coded_launches[k] + ring_launches[k],
             "launches_by_path": {"wire_serve": launches[k],
-                                 "coded_at_rest": coded_launches[k]},
+                                 "coded_at_rest": coded_launches[k],
+                                 "ring": ring_launches[k]},
             "mismatches": stats[k]["mismatches"],
             "max_abs_err": stats[k]["max_abs_err"],
             "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
@@ -850,11 +888,13 @@ def main() -> int:
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
-            "launches": launches[k] + coded_launches[k],
+            "launches": launches[k] + coded_launches[k] + ring_launches[k],
             "launches_by_path": {"wire_serve": launches[k],
-                                 "coded_at_rest": coded_launches[k]},
+                                 "coded_at_rest": coded_launches[k],
+                                 "ring": ring_launches[k]},
             **r})
     print(json.dumps({"card": card, "serve": runs}))
+    print(json.dumps({"ring": ring}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1571,6 +1611,463 @@ def kernel_bounds(torch, enc, chunk, cap_words, int_ops_per_s, step_ns):
                         chain_bound_ms=steps * step_ns * 1e-6)
         res[k] = (t, by, more)
     return res
+
+
+# ------------------------------------------------------------ ring phase
+RING_N = 4                    # ranks of the loopback ring (one card)
+RING_CHUNK = 2048
+E4M3_SIZE = 1 << 18           # symbols a rank of the e4m3 all_reduce case
+
+
+def plain_ring(torch, x, carry: str, reduce_only: bool = False):
+    """The uncoded loopback ring: the coded ring's hop schedule and adds
+    with no coding.  x (n, size) bf16, n ranks stacked → (y, shipped):
+    y (n, size) (``reduce_only``: (n, seg), rank i owning segment i), and
+    for every hop the wire-dtype components each rank ships, (n, seg)
+    apiece.  ``carry="f32"`` ships (rounded value, residual) pairs and
+    adds in float32, as ``comm.ring`` does."""
+    n, size = x.shape
+    seg = -(-size // n)
+    acc_dt = torch.float32 if carry == "f32" else x.dtype
+    acc = torch.nn.functional.pad(x.to(acc_dt), (0, n * seg - size)
+                                  ).reshape(n, n, seg)
+    i = torch.arange(n, device=x.device)
+
+    def comps(v):
+        if carry == "wire":
+            return (v,)
+        hi = v.to(x.dtype)
+        return (hi, (v - hi.float()).to(x.dtype))
+
+    def value(c):
+        return c[0] if carry == "wire" else c[0].float() + c[1].float()
+
+    def hop(c):
+        return tuple(torch.roll(ci, 1, 0) for ci in c)
+
+    shipped = []
+    start = -1 if reduce_only else 0
+    cur = acc[i, (i + start) % n]
+    for t in range(n - 1):
+        c = comps(cur)
+        shipped.append(c)
+        cur = value(hop(c)) + acc[i, (i + start - t - 1) % n]
+    if reduce_only:
+        return cur.to(x.dtype), shipped
+    out = torch.zeros((n, n, seg), dtype=acc_dt, device=x.device)
+    out[i, (i + 1) % n] = cur
+    c = comps(cur)
+    for t in range(n - 1):
+        shipped.append(c)
+        c = hop(c)
+        out[i, (i - t) % n] = value(c)
+    return out.reshape(n, -1)[:, :size].to(x.dtype), shipped
+
+
+def plain_hierarchy(torch, x):
+    """The uncoded 2 x 2 hierarchical all_reduce (wire carry): x (n_o,
+    n_i, size) → inner reduce-scatter, outer all-reduce on the owned
+    segment, inner all-gather."""
+    n_o, n_i, size = x.shape
+    seg = torch.stack([plain_ring(torch, x[o], "wire", True)[0]
+                       for o in range(n_o)])                 # (o, i, seg)
+    red = torch.stack([plain_ring(torch, seg[:, i], "wire")[0]
+                       for i in range(n_i)], dim=1)         # (o, i, seg)
+    full = red.reshape(n_o, 1, -1)[..., :size]
+    return full.expand(n_o, n_i, size)
+
+
+def recording_axes(torch, LoopbackAxis, sizes):
+    """Loopback axes (``loopback_mesh``'s layout) that keep every tensor
+    they move: the words (and bit counts) of each hop or gather."""
+    sent = []
+
+    class Rec(LoopbackAxis):
+        def ppermute(self, tensors, shift):
+            sent.extend(tensors if isinstance(tensors, tuple) else
+                        (tensors,))
+            return super().ppermute(tensors, shift)
+
+        def all_gather(self, t):
+            sent.append(t)
+            return super().all_gather(t)
+
+    batch = tuple(sizes.values())
+    axes = {name: Rec(n, name=name, batch=batch, dim=d)
+            for d, (name, n) in enumerate(sizes.items())}
+    return axes, sent
+
+
+def bits_of(torch, t):
+    """A tensor's bit pattern as an integer tensor (for bitwise equality)."""
+    ints = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
+            torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def ring_phase(torch, dev, params, cfg, books, step_logits, warm, card,
+               build):
+    """The compressed collectives on a loopback ring of RING_N ranks at
+    gemma2-2b width (see the module docstring, phase 6).  Returns the
+    ring record and the main path's launch counts."""
+    from repro_torch.comm import (TRANSPORTS, LoopbackAxis,
+                                  hierarchical_all_reduce, loopback_mesh,
+                                  ring_all_gather, ring_all_reduce,
+                                  ring_all_to_all, ring_reduce_scatter)
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import decode_jit, encode_jit
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.kernels.ops import message_bits, recode_with_book
+    from repro_torch.launch.dryrun import ring_check
+    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.layers import embed_apply
+    from repro_torch.models.transformer import _layers
+    from repro_torch.comm.transport import decode_blocks
+    from repro_torch.comm.wire import wire_add
+
+    n = RING_N
+    ax = LoopbackAxis(n)
+    mesh = loopback_mesh({"outer": 2, "inner": 2})
+    hier_axes = (mesh["inner"], mesh["outer"])
+    t_phase = time.perf_counter()
+
+    def hist_books(t, codec="huffman"):
+        return {p: build_codebook(histogram_np(torch, s), codec=codec)
+                for p, s in SCHEMES["bf16"].to_symbols(t).items()}
+
+    # DP gradient all-reduce: every rank holds one layer's w_gate-shaped
+    # gradient, N(0, 1e-3^2); books from an earlier draw (another seed).
+    shape = (cfg.d_model, cfg.d_ff)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    grad_books = hist_books(torch.randn(shape, generator=g, device=dev)
+                            * 1e-3)
+    g.manual_seed(SEED + 2)
+    grads = (torch.randn((n, *shape), generator=g, device=dev)
+             * 1e-3).to(torch.bfloat16)
+    ints = torch.randint(-2, 3, (n, *shape), generator=g,
+                         device=dev).to(torch.bfloat16)
+    int_books = hist_books(torch.randint(-2, 3, shape, generator=g,
+                                         device=dev).to(torch.bfloat16))
+    # TP logits gather: the wire serve's step logits, vocab-sharded.
+    shards = step_logits.reshape(BATCH, n, -1).transpose(0, 1).contiguous()
+    # A prefill hidden state split four ways: rank r holds the hidden
+    # state after block r of the warm-up prefill (4 x 64 x 2048).
+    with torch.no_grad():
+        h = embed_apply(params["embed"], warm, cfg)
+        hid = []
+        for _, _, _, kind, p in _layers(cfg, params):
+            h = block_apply(kind, p, h, cfg)
+            hid.append(h.to(torch.bfloat16))
+            if len(hid) == n:
+                break
+    hidden = torch.stack(hid)                      # (rank, 4, 64, 2048)
+    hid_books = hist_books(hid[0])
+    who = {
+        "dp_grad": f"data-parallel gradient sync: {n} replicas all-reduce "
+                   f"one layer's w_gate gradient {tuple(shape)} bf16",
+        "tp_logits": f"tensor-parallel serving: {n} vocab shards of a "
+                     f"batch-{BATCH} step's logits gathered on every rank",
+        "prefill_a2a": f"sequence/expert parallelism: a prefill hidden "
+                       f"state {tuple(hidden.shape[1:])} redistributed "
+                       f"among {n} ranks",
+    }
+    for k, v in who.items():
+        print(f"  {k}: {v}")
+
+    def ar(carry, backend, x=None):
+        return lambda a=ax: ring_all_reduce(
+            grads if x is None else x, a,
+            grad_books if x is None else int_books, chunk=RING_CHUNK,
+            decode_backend=backend, carry=carry)
+
+    ops = {
+        "ar_wire_multisym": ("ar", 1, ar("wire", "multisym")),
+        "ar_f32_multisym": ("ar", 2, ar("f32", "multisym")),
+        "ar_wire_scan": ("ar", 1, ar("wire", "scan")),
+        "ar_f32_scan": ("ar", 2, ar("f32", "scan")),
+        "rs_wire_multisym": ("rs", 1, lambda a=ax: ring_reduce_scatter(
+            grads, a, grad_books, chunk=RING_CHUNK)),
+        "hier_2x2": ("hier", 1, lambda a=hier_axes: hierarchical_all_reduce(
+            grads.reshape(2, 2, *shape), a, grad_books, chunk=RING_CHUNK)),
+        "ar_int": ("ar", 1, ar("wire", "multisym", ints)),
+        "ring_ag": ("ag", 1, lambda a=ax: ring_all_gather(
+            shards, a, books, chunk=RING_CHUNK)),
+        "chunked_ag": ("chunked", 1, lambda a=ax: TRANSPORTS[
+            "chunked"].all_gather(shards, a, books, chunk=RING_CHUNK)),
+        "mono_ag": ("mono", 1, lambda a=ax: TRANSPORTS[
+            "monolithic"].all_gather(shards, a, books)),
+        "ring_a2a": ("a2a", 1, lambda a=ax: ring_all_to_all(
+            hidden, a, hid_books, chunk=RING_CHUNK)),
+    }
+
+    # ---- the main path: launch counts reset just before, read after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    results, per_op = {}, {}
+    for name, (_, _, fn) in ops.items():
+        before = dict(build.LAUNCHES)
+        results[name] = fn()
+        per_op[name] = {k: build.LAUNCHES[k] - before[k]
+                        for k in build.LAUNCHES
+                        if build.LAUNCHES[k] != before[k]}
+    checks = {codec: ring_check(8, codec=codec, device=dev, verbose=False)
+              for codec in ("huffman", "qlc")}
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"ring main path: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches} [{card}]")
+
+    # ---- results against the uncoded ring, sums, gathers, permutes
+    for codec, rec in checks.items():
+        need(rec["status"] == "ok", f"ring_check ({codec}) on the card: "
+             f"{rec}")
+    for name in ("ar_wire_multisym", "ar_f32_multisym", "ar_wire_scan",
+                 "ar_f32_scan", "rs_wire_multisym"):
+        carry = "f32" if "f32" in name else "wire"
+        y, st = results[name]
+        flat = grads.reshape(n, -1)
+        want, shipped = plain_ring(torch, flat, carry,
+                                   reduce_only=name.startswith("rs"))
+        need(torch.equal(bits_of(torch, y.reshape(want.shape)),
+                         bits_of(torch, want)),
+             f"{name}: coded ring != uncoded loopback ring")
+        hop = st["hop_coded_bits"][0].tolist()
+        need(len(hop) == len(shipped), f"{name}: {len(hop)} hops")
+        for h, c in enumerate(shipped):            # B5 . lengths per hop
+            bits = sum(int(message_bits(p_sym, grad_books[p].lengths))
+                       for ci in c for p, p_sym in
+                       SCHEMES["bf16"].to_symbols(ci).items())
+            need(bits / n == hop[h], f"{name} hop {h}: hop_coded_bits "
+                 f"{hop[h]} != B5 . lengths {bits / n}")
+        ncomp = 2 if carry == "f32" else 1
+        f = 2.0 * (n - 1) / n if name.startswith("ar") else (n - 1) / n
+        need(float(st["raw_wire_bits"][0]) == f * flat.shape[1] * 16 * ncomp,
+             f"{name}: raw_wire_bits {float(st['raw_wire_bits'][0])}")
+    y, _ = results["hier_2x2"]
+    need(torch.equal(bits_of(torch, y.reshape(2, 2, -1)), bits_of(
+        torch, plain_hierarchy(torch, grads.reshape(2, 2, -1)))),
+         "hier_2x2: coded != uncoded hierarchical ring")
+    y, _ = results["ar_int"]
+    need(torch.equal(y.float(), ints.float().sum(0).expand_as(y)),
+         "ar_int: integer payload != torch.sum")
+    gathered = shards.reshape(1, -1, shards.shape[-1]).expand(n, -1, -1)
+    for name in ("ring_ag", "chunked_ag", "mono_ag"):
+        need(torch.equal(bits_of(torch, results[name][0]),
+                         bits_of(torch, gathered)), f"{name}: gather")
+    coded = {k: float(results[k][1]["coded_wire_bits"][0])
+             for k in ("ring_ag", "chunked_ag", "mono_ag")}
+    need(len(set(coded.values())) == 1, f"all_gather coded bits {coded}")
+    need(torch.equal(bits_of(torch, results["ring_a2a"][0]),
+                     bits_of(torch, hidden.transpose(0, 1))),
+         "ring_a2a: != the permuted shards")
+
+    # ---- one launch a plane a hop (B4, or B3 under scan; B1 = B2).  A
+    # coded stream is made for every hop that ships one and for no other
+    # (all_reduce: its 2(n-1) hops; reduce-scatter, all_gather and
+    # all_to_all: n-1); the 2 x 2 hierarchy: 1 + 2 + 1.
+    encodes = {"ar": 2 * n - 2, "rs": n - 1, "hier": 4, "ag": n - 1,
+               "a2a": n - 1}
+    decoder = {"scan": "decode_chunks_canonical"}
+    for name, (kind, ncomp, _) in ops.items():
+        grew = per_op[name]
+        if kind in encodes:
+            hops = round(float(results[name][1]["hops"].sum()))
+            dk = decoder.get(name.split("_")[-1], "decode_chunks_multisym")
+            need(grew.get(dk, 0) == hops * 2 * ncomp,
+                 f"{name}: {grew.get(dk, 0)} {dk} launches for {hops} hops")
+            for k in ("encode_lookup", "pack_blocks"):
+                need(grew.get(k, 0) == encodes[kind] * 2 * ncomp,
+                     f"{name}: {grew.get(k, 0)} {k} launches")
+        if kind in ("ar", "rs", "hier", "a2a"):
+            need(grew.get("histogram256", 0) > 0, f"{name}: B5 not launched")
+    for k in ("encode_lookup", "pack_blocks", "decode_chunks_multisym",
+              "decode_chunks_canonical", "histogram256",
+              "decode_chunks_qlc"):
+        need(launches[k] > 0, f"ring: kernel {k} was not launched")
+
+    # ---- time a call of each op (events; profiler device time)
+    rec = {"n_ranks": n, "chunk": RING_CHUNK, "card": card, "who": who,
+           "ops": {}, "hops": {}}
+    for name, (kind, ncomp, fn) in ops.items():
+        y, st = results[name]
+        hop = (st["hop_coded_bits"].reshape(
+            -1, st["hop_coded_bits"].shape[-1])[0].tolist()
+            if "hop_coded_bits" in st else [])
+        r = {"ms": cuda_ms(torch, fn, 2), "launches": per_op[name],
+             "raw_wire_bits": float(st["raw_wire_bits"].reshape(-1)[0]),
+             "coded_wire_bits": float(st["coded_wire_bits"].reshape(-1)[0])}
+        r["device_ms"], r["device_ops"] = device_ms(torch, fn, 2)
+        r["coded_over_raw"] = r["coded_wire_bits"] / r["raw_wire_bits"]
+        if hop:
+            seg_bits = r["raw_wire_bits"] / len(hop)
+            r["hop_coded_over_raw"] = [b / seg_bits for b in hop]
+        rec["ops"][name] = r
+        print(f"  {name}: {r['ms']:.3f} ms (device {r['device_ms']:.3f} ms, "
+              f"{r['device_ops']:.0f} device ops), coded/raw "
+              f"{r['coded_over_raw']:.4f}"
+              + (", per hop " + " ".join(f"{v:.4f}" for v in
+                                          r["hop_coded_over_raw"])
+                 if hop else "") + f" [{card}]")
+
+    # ---- one hop's parts at the w_gate size (a reduce-scatter hop)
+    seg = grads.reshape(n, -1)[:, :grads[0].numel() // n].contiguous()
+    seg_len = seg.shape[1]
+    counts = torch.full((n * seg_len // RING_CHUNK,), RING_CHUNK,
+                        dtype=torch.int32, device=dev)
+    planes = {p: s.reshape(-1, RING_CHUNK)
+              for p, s in SCHEMES["bf16"].to_symbols(seg).items()}
+    enc = {p: recode_with_book(b, seg_len, grad_books[p])
+           for p, b in planes.items()}
+    # B1 -> B2 on that hop (whole chunks, as the main path's) and on the
+    # same blocks read as segments one symbol short (a ragged tail in
+    # every rank's last chunk), held to the plain versions on CPU copies
+    t0 = time.perf_counter()
+    for n_seg in (seg_len, seg_len - 1):
+        for p, b in planes.items():
+            got = (enc[p] if n_seg == seg_len else
+                   recode_with_book(b, n_seg, grad_books[p]))
+            want = recode_with_book(b.cpu(), n_seg, grad_books[p])
+            need(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                 f"w_gate hop recode ({p} plane, {n_seg} symbols a "
+                 f"segment): the card's words or bits != the plain "
+                 f"versions'")
+    print(f"w_gate hop recode (B1 -> B2, {n} x {seg_len} symbols a plane, "
+          f"whole and ragged segments): words and bits equal to the plain "
+          f"versions ({time.perf_counter() - t0:.1f} s)")
+    parts = {
+        "decode_multisym": lambda: [decode_blocks(
+            w, counts, grad_books[p], RING_CHUNK, "multisym")
+            for p, (w, _) in enc.items()],
+        "decode_scan": lambda: [decode_blocks(
+            w, counts, grad_books[p], RING_CHUNK, "scan")
+            for p, (w, _) in enc.items()],
+        "add": lambda: wire_add(seg, seg),
+        "recode": lambda: [recode_with_book(
+            s.reshape(-1, RING_CHUNK), seg_len, grad_books[p])
+            for p, s in SCHEMES["bf16"].to_symbols(seg).items()],
+        "recode_ragged": lambda: [recode_with_book(
+            s.reshape(-1, RING_CHUNK), seg_len - 1, grad_books[p])
+            for p, s in SCHEMES["bf16"].to_symbols(seg).items()],
+        "roll": lambda: [ax.ppermute(w.view(n, -1, w.shape[-1]), 1)
+                         for w, _ in enc.values()],
+    }
+    for k, fn in parts.items():
+        r = {"ms": cuda_ms(torch, fn, 10)}
+        r["device_ms"], r["device_ops"] = device_ms(torch, fn, 10)
+        rec["hops"][k] = r
+        print(f"  hop part {k} ({n} ranks x {seg.shape[1]} elements, both "
+              f"planes): {r['ms']:.4f} ms (device {r['device_ms']:.4f}) "
+              f"[{card}]")
+
+    # ---- kernels against plain at the logits size, bit for bit
+    t0 = time.perf_counter()
+    small = grads.reshape(n, -1)[:, :BATCH * cfg.vocab_size].contiguous()
+    cases = {
+        "ar_wire_multisym": lambda x, a: ring_all_reduce(
+            x, a["r"], grad_books, chunk=RING_CHUNK),
+        "ar_f32_multisym": lambda x, a: ring_all_reduce(
+            x, a["r"], grad_books, chunk=RING_CHUNK, carry="f32"),
+        "ar_wire_scan": lambda x, a: ring_all_reduce(
+            x, a["r"], grad_books, chunk=RING_CHUNK, decode_backend="scan"),
+        "rs_wire_multisym": lambda x, a: ring_reduce_scatter(
+            x, a["r"], grad_books, chunk=RING_CHUNK),
+        "hier_2x2": lambda x, a: hierarchical_all_reduce(
+            x.reshape(2, 2, -1), (a["inner"], a["outer"]), grad_books,
+            chunk=RING_CHUNK),
+        "ring_ag": lambda x, a: ring_all_gather(x, a["r"], books,
+                                                chunk=RING_CHUNK),
+        "chunked_ag": lambda x, a: TRANSPORTS["chunked"].all_gather(
+            x, a["r"], books, chunk=RING_CHUNK),
+        "mono_ag": lambda x, a: TRANSPORTS["monolithic"].all_gather(
+            x, a["r"], books),
+        "ring_a2a": lambda x, a: ring_all_to_all(x, a["r"], hid_books,
+                                                 chunk=RING_CHUNK),
+        "ar_e4m3_wire": lambda x, a: ring_all_reduce(
+            x, a["r"], e4m3_books, "e4m3", chunk=RING_CHUNK),
+    }
+    # e4m3 payloads whose ring sums pass 448 (XLA's overflow to NaN)
+    g.manual_seed(SEED + 3)
+    e4m3 = (torch.randn((n, E4M3_SIZE), generator=g, device=dev)
+            * 150).to(torch.float8_e4m3fn)
+    e4m3_books = {p: build_codebook(histogram_np(torch, s), codec="huffman")
+                  for p, s in SCHEMES["e4m3"].to_symbols(e4m3).items()}
+    inputs = {"ring_ag": shards, "chunked_ag": shards, "mono_ag": shards,
+              "ring_a2a": hidden, "ar_e4m3_wire": e4m3}
+    compared = {}
+    for name, fn in cases.items():
+        x = inputs.get(name, small)
+        sizes = ({"outer": 2, "inner": 2} if name.startswith("hier")
+                 else {"r": n})
+        out = []
+        for d in (dev, torch.device("cpu")):
+            axes, sent = recording_axes(torch, LoopbackAxis, sizes)
+            y, st = fn(x.to(d), axes)
+            out.append((y, st, sent))
+        (gy, gst, gsent), (cy, cst, csent) = out
+        need(len(gsent) == len(csent) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(gsent, csent)),
+             f"{name}: the card's hop words differ from the plain versions'")
+        need(set(gst) == set(cst) and all(
+            torch.equal(gst[k].cpu(), cst[k]) for k in gst),
+             f"{name}: stats differ from the plain versions'")
+        need(torch.equal(bits_of(torch, gy.cpu()), bits_of(torch, cy)),
+             f"{name}: result differs from the plain versions'")
+        compared[name] = {"tensors_moved": len(gsent),
+                          "symbols_a_rank": x[0].numel()}
+        if gy.dtype == torch.float8_e4m3fn:
+            nans = int(torch.isnan(gy.float()).sum())
+            need(nans > 0, f"{name}: no sum passed 448 (no NaN)")
+            compared[name]["nan_results"] = nans
+    rec["kernels_vs_plain"] = compared
+    print(f"kernels vs plain at the logits size: {len(compared)} ops, every "
+          f"hop's words, stats and results equal ("
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # ---- B3, B4, B6 walk a monolithic stream: chunk = 1 024 000
+    mono = {}
+    for p, sym in SCHEMES["bf16"].to_symbols(step_logits).items():
+        for codec in ("huffman", "qlc"):
+            b = build_codebook(histogram_np(torch, sym), codec=codec)
+            w, _ = encode_jit(sym, b.codes, b.lengths)
+            t = b.tables if codec == "huffman" else None
+            fns = ({"B4 multisym": lambda: b_decode(b, w, sym),
+                    "B3 canonical": lambda: decode_jit(
+                        w, t.first_code, t.base_index, t.num_codes,
+                        t.sorted_symbols, sym.numel())}
+                   if codec == "huffman" else
+                   {"B6 qlc": lambda: b_decode(b, w, sym)})
+            for k, fn in fns.items():
+                got, ms = timed_once(torch, fn)
+                if p == "hi":
+                    plain = (b_decode(b, w.cpu(), sym) if "B3" not in k else
+                             decode_jit(w.cpu(), t.first_code, t.base_index,
+                                        t.num_codes, t.sorted_symbols,
+                                        sym.numel()))
+                    need(torch.equal(got.cpu().to(torch.uint8),
+                                     plain.to(torch.uint8)),
+                         f"monolithic {k}: kernel != plain")
+                need(torch.equal(got.to(torch.uint8), sym),
+                     f"monolithic {k}: does not round-trip the {p} plane")
+                mono[f"{k} {p}"] = ms
+    rec["monolithic_decode_ms"] = mono
+    print("monolithic decode, one chunk of 1 024 000 symbols: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in mono.items()) + f" [{card}]")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+def b_decode(book, words, sym):
+    """A monolithic stream's decode through the book's codec (B4 for a
+    Huffman book, B6 for QLC)."""
+    from repro_torch.core.encoder import decode_with_book
+    return decode_with_book(words, book, sym.numel())
+
+
+def histogram_np(torch, sym):
+    """A plane's 256-bin counts as numpy (B5 on the card)."""
+    from repro_torch.comm.compression import histogram256
+    return histogram256(sym).cpu().numpy()
 
 
 if __name__ == "__main__":

@@ -71,12 +71,16 @@ class Codec:
 
     def decode_plane(self, words, book, n_symbols: int):
         """Monolithic decode: a whole-plane stream of n symbols is one
-        chunk of size n (``chunk_capacity_words(n)`` words)."""
-        counts = torch.full((1,), n_symbols, dtype=torch.int32,
+        chunk of size n (``chunk_capacity_words(n)`` words).  ``words``
+        may carry leading dims, (..., cap) → (..., n): every stream is a
+        chunk of one launch."""
+        lead = words.shape[:-1]
+        rows = words.reshape(-1, words.shape[-1])
+        counts = torch.full((rows.shape[0],), n_symbols, dtype=torch.int32,
                             device=words.device)
-        out = self.decode_blocks(words.reshape(1, -1), counts, book,
-                                 n_symbols, self.default_backend)
-        return out.reshape(-1)
+        out = self.decode_blocks(rows, counts, book, n_symbols,
+                                 self.default_backend)
+        return out.reshape(*lead, n_symbols)
 
 
 CODECS: Dict[str, Codec] = {}

@@ -15,6 +15,10 @@ unsigned words converts at the boundary with
 The functions here are the plain-torch formulations — the CPU path and
 the oracles the CUDA kernels are held to on the card:
 
+  encode_jit / decode_jit — the monolithic path: one stream a plane,
+      ``packed_words_capacity(n)`` words (B1 → B2 → merge and a
+      one-chunk walk on the card, ``pack_rows`` on one row and the
+      canonical walk on the CPU);
   pack_rows / encode_chunked_rows / recode_chunks — the ``_pack_rows``
       bit-pack core (reference ``encode_chunked_jit``,
       ``recode_chunks_jit``);
@@ -46,7 +50,8 @@ from ..device import resolve_device
 from .huffman import MAX_CODE_LEN
 
 __all__ = [
-    "DEFAULT_CHUNK", "ChunkedStream",
+    "DEFAULT_CHUNK", "ChunkedStream", "EncodeResult",
+    "packed_words_capacity", "encode_jit", "decode_jit", "decode_with_book",
     "chunk_capacity_words", "chunk_counts_for", "concat_chunks",
     "u32_values", "walk_symbols", "canonical_first_code",
     "canonical_window_tables",
@@ -71,6 +76,13 @@ def chunk_capacity_words(chunk: int, max_len: int = MAX_CODE_LEN) -> int:
     ``cap - 2`` never misreads the final codewords.  1025 at chunk 2048.
     """
     return (chunk * max_len + 31) // 32 + 1
+
+
+def packed_words_capacity(n_symbols: int, max_len: int = MAX_CODE_LEN) -> int:
+    """Worst-case uint32 words of a monolithic n-symbol stream (+1 pad
+    word for window reads): ``chunk_capacity_words(n_symbols)``, so a
+    monolithic stream is one chunk of n symbols to every decoder."""
+    return (n_symbols * max_len + 31) // 32 + 1
 
 
 def chunk_counts_for(n_symbols: int, chunk: int) -> np.ndarray:
@@ -401,6 +413,76 @@ def decode_chunks_multisym(block_words: torch.Tensor,
 # --------------------------------------------------------------------------
 # Entry points
 # --------------------------------------------------------------------------
+# Symbols a monolithic call may hold (the reference's cap).
+_MAX_SYMBOLS = 1 << 26
+
+
+def _int_table(a, device) -> torch.Tensor:
+    """A code or length table (numpy, possibly uint32, or a tensor) as
+    int64 on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+
+@dataclass
+class EncodeResult:
+    """One monolithic stream: ``packed_words_capacity(n)`` words."""
+    words: torch.Tensor         # (capacity,) int32 bit patterns
+    n_bits: torch.Tensor        # () int32, the payload's true size
+    n_symbols: int
+    book_id: int = -1
+
+    def payload_bytes(self) -> float:
+        return float(self.n_bits) / 8.0
+
+
+def encode_jit(symbols: torch.Tensor, codes, lengths,
+               max_len: int = MAX_CODE_LEN
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Monolithic encode (reference ``encode_jit``): (N,) symbols through
+    the (codes, lengths) tables into one MSB-first stream, on the
+    symbols' device.  Returns (words (packed_words_capacity(N),) int32,
+    n_bits () int32).  It runs the reference's kernel path
+    (``kernels.ops.encode_monolithic``: B1, B2 in 2048-symbol blocks,
+    then the blocks merged into one stream), whose wrappers run their
+    plain versions on the CPU."""
+    from ..kernels.ops import encode_monolithic
+    sym = torch.as_tensor(symbols).reshape(1, -1)
+    if sym.shape[1] > _MAX_SYMBOLS:
+        raise ValueError(f"chunk too large: {sym.shape[1]} > {_MAX_SYMBOLS}")
+    lut = torch.stack([_int_table(codes, sym.device),
+                       _int_table(lengths, sym.device)], dim=1)
+    words, bits = encode_monolithic(sym, _to_int32_bits(lut),
+                                    max_len=max_len)
+    return words[0], bits[0]
+
+
+def decode_jit(words: torch.Tensor, first_code, base_index, num_codes,
+               sorted_symbols, n_symbols: int, max_len: int = MAX_CODE_LEN
+               ) -> torch.Tensor:
+    """Monolithic canonical decode (reference ``decode_jit``): the
+    stream is one chunk of ``n_symbols`` (kernel B3 on the card, the
+    plain canonical walk on the CPU).  Returns (n_symbols,) uint8."""
+    from ..kernels.decode import decode_chunks_canonical
+    dev = words.device
+    if n_symbols == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=dev)
+    tables = [_int_table(t, dev).to(torch.int32)
+              for t in (first_code, base_index, num_codes, sorted_symbols)]
+    counts = torch.full((1,), n_symbols, dtype=torch.int32, device=dev)
+    out = decode_chunks_canonical(words.reshape(1, -1).contiguous(), counts,
+                                  *tables, chunk=n_symbols, max_len=max_len)
+    return out.reshape(-1).to(torch.uint8)
+
+
+def decode_with_book(words: torch.Tensor, book, n_symbols: int
+                     ) -> torch.Tensor:
+    """Monolithic decode of one plane's stream through the book's codec."""
+    from .codec import codec_for_book
+    return codec_for_book(book).decode_plane(words, book, n_symbols)
+
+
 @dataclass
 class ChunkedStream:
     """A Huffman bitstream cut into independently decodable chunks.

@@ -1,8 +1,20 @@
-"""The compressed-at-rest memory check (port of ``repro.launch.dryrun``'s
-``--memstore-check``; the reference's other checks wait for their
-slices).
+"""The compressed-ring and compressed-at-rest checks (port of
+``repro.launch.dryrun``'s ``--ring-check`` and ``--memstore-check``; the
+reference's other checks wait for their slices).
 
+    python -m repro_torch.launch.dryrun --ring-check [--device cpu]
+        [--codec huffman|qlc]
     python -m repro_torch.launch.dryrun --memstore-check [--device cpu]
+
+``ring_check`` runs the ring collectives (``comm.ring``,
+``comm.hierarchy``) on a loopback axis of n ranks (payload 4096 a rank,
+chunk 512, integer-valued bf16, so every ring order sums exactly) and
+holds ring_all_reduce, ring_all_gather, ring_reduce_scatter,
+ring_all_to_all and the 2 × n/2 hierarchical all_reduce to plain torch
+sums, gathers and permutes, and the ledgers to the analytic volumes:
+2(n−1)/n for all_reduce, (n−1)/n for reduce_scatter and all_to_all, the
+sum of the per-axis terms for the hierarchy.  ``--codec`` picks the
+books' codec.
 
 ``memstore_check`` proves the compressed-at-rest serving path end to end
 under both registered codecs, on CUDA unless the caller names the CPU:
@@ -39,7 +51,94 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["memstore_check", "memck_config", "main"]
+__all__ = ["ring_check", "memstore_check", "memck_config", "main"]
+
+
+def ring_check(n: int = 8, payload: int = 4096, chunk: int = 512,
+               codec: str = "huffman", *, device=None,
+               verbose: bool = True) -> Dict[str, Any]:
+    """Run the ring collectives on a loopback axis of ``n`` ranks and
+    check them bit for bit against plain torch collectives, with the
+    measured ledgers against the analytic ring volumes (the reference's
+    ``ring_collective_check`` on one device).  On CUDA every hop runs the
+    kernels; ``device="cpu"`` runs their plain versions."""
+    import numpy as np
+    from ..comm import (LoopbackAxis, hierarchical_all_reduce,
+                        hierarchical_wire_factor, loopback_mesh,
+                        ring_all_gather, ring_all_reduce, ring_all_to_all,
+                        ring_reduce_scatter)
+    from ..core.codebook import build_codebook
+    from ..core.symbols import SCHEMES
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(-2, 3, (n, payload), generator=gen).to(
+        torch.bfloat16).to(dev)
+    books = {p: build_codebook(np.bincount(s.cpu().numpy(), minlength=256),
+                               codec=codec)
+             for p, s in SCHEMES["bf16"].to_symbols(x).items()}
+    ax = LoopbackAxis(n)
+
+    yr, sr = ring_all_reduce(x, ax, books, "bf16", chunk=chunk,
+                             decode_backend="scan")
+    yg, _ = ring_all_gather(x[:, None], ax, books, "bf16", chunk=chunk,
+                            decode_backend="scan")
+    # the other ops run the codec's default ("auto") hop decode
+    ys, ss = ring_reduce_scatter(x, ax, books, "bf16", chunk=chunk)
+    ya, sa = ring_all_to_all(x.reshape(n, n, -1), ax, books, "bf16",
+                             chunk=chunk)
+    total = x.float().sum(0)
+
+    def exact(a, b) -> bool:
+        return bool(torch.equal(a.float(), b.float()))
+
+    ar_exact = exact(yr, total.expand(n, -1))
+    ag_exact = exact(yg, x.expand(n, n, payload))
+    rs_exact = exact(ys, total.reshape(n, -1))
+    a2a_exact = exact(ya, x.reshape(n, n, -1).transpose(0, 1))
+
+    # the hierarchical two-axis ring on a (2 × n//2) stack of ranks
+    n2, n1 = 2, n // 2
+    mesh = loopback_mesh({"outer": n2, "inner": n1})
+    xh = torch.randint(-2, 3, (n2, n1, payload), generator=gen).to(
+        torch.bfloat16).to(dev)
+    yh, sh = hierarchical_all_reduce(xh, (mesh["inner"], mesh["outer"]),
+                                     books, "bf16", chunk=chunk)
+    hier_exact = exact(yh, xh.float().sum((0, 1)).expand(n2, n1, -1))
+
+    def glob(stats, k) -> float:      # a caller's psum of a replicated stat
+        return float(stats[k].sum())
+
+    S = payload * 16
+    raw = {"ar": glob(sr, "raw_wire_bits"), "rs": glob(ss, "raw_wire_bits"),
+           "a2a": glob(sa, "raw_wire_bits"),
+           "hier": glob(sh, "raw_wire_bits")}
+    analytic = {"ar": 2.0 * (n - 1) * S, "rs": (n - 1) * S,
+                "a2a": (n - 1) * S,
+                "hier": (n1 * n2) * hierarchical_wire_factor(n1, n2) * S}
+    volumes_ok = all(abs(raw[k] - analytic[k]) < 1e-3 for k in raw)
+    exact_all = ar_exact and ag_exact and rs_exact and a2a_exact and hier_exact
+    rec = {
+        "kind": "ring_check", "axis": f"loopback {n}", "n_ranks": n,
+        "device": str(dev), "payload_elems": payload, "chunk": chunk,
+        "codec": codec, "bitexact_all_reduce": ar_exact,
+        "bitexact_all_gather": ag_exact, "bitexact_reduce_scatter": rs_exact,
+        "bitexact_all_to_all": a2a_exact, "bitexact_hierarchical": hier_exact,
+        **{f"{k}_raw_wire_bits": v for k, v in raw.items()},
+        **{f"{k}_analytic_raw_bits": v for k, v in analytic.items()},
+        "ar_coded_wire_bits": glob(sr, "coded_wire_bits"),
+        "ar_hops": round(glob(sr, "hops")),
+        "hier_axes": f"{n2}x{n1}", "hier_hops": round(glob(sh, "hops")),
+        "seconds": time.perf_counter() - t0,
+        "status": "ok" if exact_all and volumes_ok else "FAILED",
+    }
+    if verbose:
+        print(f"[dryrun] ring-check n={n} payload={payload} codec={codec} "
+              f"device={dev} bitexact(ar/ag/rs/a2a/hier)={ar_exact}/"
+              f"{ag_exact}/{rs_exact}/{a2a_exact}/{hier_exact} coded/raw="
+              f"{rec['ar_coded_wire_bits'] / raw['ar']:.3f} "
+              f"status={rec['status']}", flush=True)
+    return rec
 
 
 def memck_config():
@@ -244,6 +343,12 @@ def memstore_check(cfg=None, params=None, *, device=None, batch: int = 2,
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ring-check", action="store_true",
+                    help="run the ring collectives and the hierarchical "
+                         "ring on a loopback axis; bit-check them against "
+                         "plain torch collectives")
+    ap.add_argument("--codec", default="huffman",
+                    help="entropy codec for --ring-check books")
     ap.add_argument("--memstore-check", action="store_true",
                     help="prove the compressed-at-rest memory path: store "
                          "and KV round trips, fused decode_matmul vs its "
@@ -253,13 +358,18 @@ def main(argv: Optional[list] = None) -> None:
                          "the kernels' plain versions)")
     ap.add_argument("--out", default=None, help="write the record as JSON")
     args = ap.parse_args(argv)
-    if not args.memstore_check:
-        ap.error("nothing to do: pass --memstore-check")
-    rec = memstore_check(device=args.device)
+    if not (args.memstore_check or args.ring_check):
+        ap.error("nothing to do: pass --ring-check or --memstore-check")
+    rec = {}
+    if args.ring_check:
+        rec["ring_check"] = ring_check(codec=args.codec,
+                                       device=args.device)
+    if args.memstore_check:
+        rec["memstore_check"] = memstore_check(device=args.device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1, default=str)
-    if rec["status"] != "ok":
+    if any(r["status"] != "ok" for r in rec.values()):
         raise SystemExit(1)
 
 
