@@ -93,8 +93,37 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    B3, B4 and B6 also walk a monolithic
    stream (one chunk of 1 024 000 symbols).  On one card a loopback hop
    moves no bytes over a link: the times are the codec's cost a hop;
-7. the last lines: one ``{"ring": ...}`` record, one ``{"kernels":
-   [...]}`` record (B1-B8), then ``{"ok": true, "device": {...}}``.
+7. train ``gemma2-2b`` at full width (depth not cut) through
+   ``repro_torch.launch.train.train``: the seed-0 params, batch 4 x 128
+   of ``SyntheticDataset`` tokens, AdamW lr 1e-3 with the cosine
+   schedule, 8 steps with ``--compress`` semantics (books bootstrapped
+   from the params, ``DriftThresholds(min_symbols=1024)``, a refresh
+   check every 2 steps); launch counts reset before and read after these
+   steps (``launches_by_path["train"]``: B5 on every gradient leaf and
+   plane).  Checked: finite losses, ``grad_raw_bits`` = 16 x params, the
+   bootstrap books go stale and an epoch flips, ``n_recompiles`` = the
+   epochs built, B5 launched; then on one repeated batch (lr 1e-4) every
+   leaf's B5 histograms equal the plain histogram of its bf16 planes, the
+   probe's coded bits equal hist . lengths in int64, the refreshed books
+   code the gradients at a lower coded/raw than the bootstrap books, and
+   the loss falls over 4 steps (the 2nd and 3rd under the profiler:
+   device ms a step, idle share, B5's ms; the 4th's host syncs counted);
+   the step's parts (forward + backward, the probe, AdamW) are profiled
+   on their own; the reduced config takes one step on the card and one
+   on the CPU from the same params and batch, every reading of
+   ``train.step.step_deviation`` within ``STEP_TOL``.  Printed: host-clock median step time and
+   tokens/s, device ms and idle share, B5's share, coded/raw before and
+   after the refresh, the refreshes' host seconds, peak memory;
+8. lifecycle: ``launch.dryrun.drift_check`` at 8 ranks on the card
+   (every field true), then the wire serve's setup (4 x 64 prompts, 16
+   new tokens, ``multisym``) with ``Engine(lifecycle=,
+   refresh_every=4)`` under thresholds 0 (every window stale): at least
+   one refresh, every step lossless with B2 bits = B5 . the lengths of
+   the epoch in force, the tokens of the same engine without
+   ``lifecycle=`` (``launches_by_path["lifecycle"]``: B1, B2, B4, B5);
+9. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}`` and
+   one ``{"train": ...}`` record, one ``{"kernels": [...]}`` record
+   (B1-B8), then ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -108,10 +137,12 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 SEED = 0
@@ -834,6 +865,36 @@ def main() -> int:
                                      step_logits, warm, card, build)
     torch.cuda.empty_cache()
 
+    # ------------------------------------ 7. train gemma2-2b (full width)
+    phase("train gemma2-2b at full width (gradient probe, lifecycle)")
+    del logits, planes
+    trained, train_launches = train_phase(torch, dev, params, cfg, card,
+                                          build)
+    p = trained["profile"]
+    print(f"train step: {trained['step_ms_median']:.1f} ms host-clock "
+          f"median of {TRAIN_STEPS}, {trained['tokens_per_s']:.0f} tokens/s; "
+          f"device {p['device_busy_ms_per_step']:.2f} ms a step, idle share "
+          f"{p['idle_share']:.4f} (profiler, {p['steps']} steps), B5 "
+          f"{trained['b5_device_ms_per_step']:.4f} ms a step "
+          f"({100 * trained['b5_share_of_device']:.2f} % of device); "
+          f"gradient coded/raw {trained['grad_coded_over_raw_bootstrap']:.4f}"
+          f" (bootstrap books) -> "
+          f"{trained['grad_coded_over_raw_refreshed']:.4f} (epoch "
+          f"{trained['refreshed_epoch']}); refresh host s "
+          f"{[round(r['seconds'], 4) for r in trained['refreshes']]}; "
+          f"peak memory {trained['peak_memory_gb']:.2f} GB; host syncs "
+          f"in a step {trained['host_syncs_a_step']} [{card}]")
+    for k, r in trained["parts"].items():
+        print(f"  train step part {k}: {r['wall_ms_per_step']:.2f} ms wall, "
+              f"{r['device_busy_ms_per_step']:.2f} ms device, idle share "
+              f"{r['idle_share']:.4f} (profiler, 2 calls) [{card}]")
+    torch.cuda.empty_cache()
+
+    # --------------------------------- 8. lifecycle: drift check, refresh
+    phase("lifecycle (drift check, serve with book hot-refresh)")
+    life, life_launches = lifecycle_phase(torch, dev, params, cfg, books,
+                                          prompts, card, build)
+
     if "--profile" in sys.argv[1:]:
         phase("profile (torch.profiler, device timeline)")
         prof = {k: profile_steps(torch, params, cfg, prompts, spec)
@@ -850,6 +911,9 @@ def main() -> int:
         "decode_chunks_multisym": ("B4", "decode.cu",
                                    "src/repro/kernels/decode.py:218"),
     }
+    paths = {"wire_serve": launches, "coded_at_rest": coded_launches,
+             "ring": ring_launches, "train": train_launches,
+             "lifecycle": life_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -859,10 +923,8 @@ def main() -> int:
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
-            "launches": launches[k] + coded_launches[k] + ring_launches[k],
-            "launches_by_path": {"wire_serve": launches[k],
-                                 "coded_at_rest": coded_launches[k],
-                                 "ring": ring_launches[k]},
+            "launches": sum(c[k] for c in paths.values()),
+            "launches_by_path": {name: c[k] for name, c in paths.items()},
             "mismatches": stats[k]["mismatches"],
             "max_abs_err": stats[k]["max_abs_err"],
             "ms": t.pop("ms"), "plain_ms": t.pop("plain_ms"),
@@ -888,13 +950,13 @@ def main() -> int:
         kernels.append({
             "name": f"{tag} {k}", "route": "cuda", "source": source + src,
             "replaces": replaces,
-            "launches": launches[k] + coded_launches[k] + ring_launches[k],
-            "launches_by_path": {"wire_serve": launches[k],
-                                 "coded_at_rest": coded_launches[k],
-                                 "ring": ring_launches[k]},
+            "launches": sum(c[k] for c in paths.values()),
+            "launches_by_path": {name: c[k] for name, c in paths.items()},
             **r})
     print(json.dumps({"card": card, "serve": runs}))
     print(json.dumps({"ring": ring}))
+    print(json.dumps({"card": card, "lifecycle": life}))
+    print(json.dumps({"card": card, "train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1432,10 +1494,9 @@ def step_without_sync(torch, params, cfg, prompts, spec) -> None:
 
 
 def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
-    """Device time of ``steps`` serve steps after a prefill, from the
-    profiler's kernel events: busy ms per step, the idle share of the
-    steps' wall time, and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of ``steps`` serve steps after a prefill and a warm-up
+    step (``steps_profile``): busy ms per step, the idle share of the
+    steps' wall time, the top kernels and the port's kernels."""
     from repro_torch.models import prefill
     from repro_torch.serve import make_serve_step
     step = make_serve_step(cfg, spec)
@@ -1444,37 +1505,14 @@ def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
                                  PROMPT + NEW)
         tok = logits[:, -1].argmax(-1)[:, None]
         step(params, tok, caches, PROMPT)               # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            for i in range(1, steps + 1):
-                logits, caches, _ = step(params, tok, caches, PROMPT + i)
-                tok = logits[:, -1].argmax(-1)[:, None]
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    kern = {}
-    for e in p.key_averages():
-        if e.device_type != DeviceType.CUDA:    # CPU ops repeat their
-            continue                            # kernels' device time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kern[e.key] = kern.get(e.key, 0.0) + us
-    busy_ms = sum(kern.values()) / 1e3 / steps
-    wall_ms = wall * 1e3 / steps
-    top = sorted(kern.items(), key=lambda kv: -kv[1])[:12]
-    # the port's own kernels (csrc/*.cu keep them in anonymous namespaces)
-    port = {k.split("::")[1].split("(")[0]: v / 1e3 / steps
-            for k, v in kern.items() if k.startswith("(anonymous namespace)")}
-    return {"steps": steps, "wall_ms_per_step": wall_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps
-                                        for k, v in top},
-            "port_kernels_ms_per_step": port}
+        at = {"tok": tok, "pos": PROMPT}
+
+        def one():
+            at["pos"] += 1
+            logits, _, _ = step(params, at["tok"], caches, at["pos"])
+            at["tok"] = logits[:, -1].argmax(-1)[:, None]
+
+        return steps_profile(torch, one, steps)[1]
 
 
 def start_probe(build, name: str, source: str):
@@ -2054,6 +2092,302 @@ def ring_phase(torch, dev, params, cfg, books, step_logits, warm, card,
     print("monolithic decode, one chunk of 1 024 000 symbols: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in mono.items()) + f" [{card}]")
     rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+# ------------------------------------------------------ train phase
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_EXTRA = 4, 128, 8, 4
+TRAIN_LR, TRAIN_REFRESH = 1e-3, 2
+
+
+def steps_profile(torch, fn, steps: int):
+    """Device time of ``steps`` calls of ``fn`` (each one step, ending in
+    the step's own host sync) under torch.profiler: busy ms a step from
+    the device events, the idle share of the steps' wall time, the
+    port's kernels' ms a step and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        out = [fn() for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    for e in p.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kern[e.key] = kern.get(e.key, 0.0) + us
+    busy_ms = sum(kern.values()) / 1e3 / steps
+    wall_ms = wall * 1e3 / steps
+    short = {}
+    for k, v in kern.items():                   # names cut to 80 chars
+        short[k[:80]] = short.get(k[:80], 0.0) + v / 1e3 / steps
+    port = {k.split("::")[1].split("(")[0]: v / 1e3 / steps
+            for k, v in kern.items() if k.startswith("(anonymous namespace)")}
+    return out, {"steps": steps, "wall_ms_per_step": wall_ms,
+                 "device_busy_ms_per_step": busy_ms,
+                 "idle_share": 1.0 - busy_ms / wall_ms,
+                 "port_kernels_ms_per_step": port,
+                 "top_kernels_ms_per_step": dict(sorted(
+                     short.items(), key=lambda kv: -kv[1])[:10])}
+
+
+def train_phase(torch, dev, params, cfg, card, build):
+    """Phase 7: gemma2-2b trained at full width on the card through
+    ``launch.train.train`` (see the module docstring).  Returns the
+    record and the main path's launch counts."""
+    from repro_torch.core.symbols import bf16_planes
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.kernels.histogram import histogram256_plain
+    from repro_torch.launch.train import train
+    from repro_torch.models import model_init, param_count
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.step import (STEP_TOL, grad_payload_stats,
+                                        loss_and_grads, make_train_step,
+                                        step_deviation, train_state_init)
+    from repro_torch.comm.compression import histogram256
+
+    t_phase = time.perf_counter()
+    n_params = param_count(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: launch counts reset just before, read after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    run = train(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, lr=TRAIN_LR, compress=True,
+                refresh_every=TRAIN_REFRESH, seed=SEED, device=dev,
+                params=params)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    mgr, steps, refreshes = run["lifecycle"], run["steps"], run["refreshes"]
+    print(f"train main path: {run['seconds']:.1f} s, launches {launches} "
+          f"[{card}]")
+
+    need(all(math.isfinite(s["loss"]) for s in steps),
+         f"train: a loss is not finite: {[s['loss'] for s in steps]}")
+    need(all(s["grad_raw_bits"] == 16.0 * n_params for s in steps),
+         f"train: grad_raw_bits != 16 x {n_params} params")
+    epochs = [s["book_epoch"] for s in steps]
+    need(epochs[0] == 2.0 and refreshes and max(epochs) > 2.0,
+         f"train: the bootstrap books never went stale (epochs {epochs}, "
+         f"refreshes {refreshes})")
+    built = set(epochs) | {float(mgr.book_epoch)}
+    need(mgr.n_recompiles == len(built), f"train: {mgr.n_recompiles} step "
+         f"builds for the epochs {sorted(built)}")
+    need(launches["histogram256"] > 0, "train: kernel B5 was not launched")
+
+    # ---- the repeated batch: 4 extra steps at a constant lr, the 2nd
+    # and 3rd under the profiler, the host syncs of the 4th counted; the
+    # loss must fall.  The lr is a tenth of the run's peak: a constant
+    # 1e-3 overshoots on one batch at this width (7.75, 11.76, 11.94,
+    # 10.22 in a first run on the card)
+    state = run["state"]
+    spec_new = mgr.spec("grad", "bf16")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(SyntheticDataset(
+        cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1))).items()}
+    _, _, grads = loss_and_grads(state.params, batch, cfg)
+
+    # ---- every leaf's B5 histograms against the plain histogram, and
+    # the probe's coded bits against hist . lengths in int64
+    total = {p: torch.zeros(256, dtype=torch.int64, device=dev)
+             for p in ("lo", "hi")}
+    for leaf in tree_leaves(grads):
+        for p, sym in bf16_planes(leaf).items():
+            h = histogram256(sym)
+            need(torch.equal(h, histogram256_plain(sym)),
+                 f"train: B5 != plain on a {tuple(leaf.shape)} gradient "
+                 f"leaf's {p} plane")
+            total[p] += h
+    coded = sum(int((total[p] * torch.from_numpy(spec_new.lengths_for(p))
+                     .to(dev, torch.int64)).sum()) for p in total)
+    probe_new = grad_payload_stats(grads, spec_new)
+    probe_boot = grad_payload_stats(grads, run["spec"])
+    need(all(torch.equal(probe_new[f"hist_{p}"], total[p]) for p in total)
+         and float(probe_new["coded_bits"]) == float(coded),
+         f"train: grad_coded_bits {float(probe_new['coded_bits'])} != "
+         f"hist . lengths {coded}")
+    raw = float(probe_new["raw_bits"])
+    ratio_boot = float(probe_boot["coded_bits"]) / raw
+    ratio_new = float(probe_new["coded_bits"]) / raw
+    need(ratio_new < ratio_boot, f"train: the refreshed books (epoch "
+         f"{mgr.book_epoch}) code the gradients at {ratio_new} of raw, "
+         f"the bootstrap books at {ratio_boot}")
+    del grads, probe_new, probe_boot
+
+    extra = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR / 10),
+                            comp_spec=spec_new)
+    box = {"state": state}
+
+    def one():
+        box["state"], m = extra(box["state"], batch)
+        return float(m["loss"])
+
+    losses = [one()]
+    more, prof = steps_profile(torch, one, TRAIN_EXTRA - 2)
+    losses += more
+    torch.cuda.synchronize()        # the last: its host syncs counted
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            box["state"], m = extra(box["state"], batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    step_syncs = sum("synchronizing" in str(w.message) for w in caught)
+    losses.append(float(m["loss"]))
+    # the step's parts on the last state, each under the profiler (2
+    # calls): forward + backward, the probe, the optimizer (lr 0).  The
+    # update consumes its state (it moves the moments in place): it runs
+    # on the last state, which nothing reads after this; cloned moments
+    # would add 20 GB at this width
+    st = box["state"]
+    g = loss_and_grads(st.params, batch, cfg)[2]
+    parts = {
+        "forward_backward": steps_profile(torch, lambda: loss_and_grads(
+            st.params, batch, cfg)[0], 2)[1],
+        "grad_probe": steps_profile(torch, lambda: grad_payload_stats(
+            g, spec_new)["coded_bits"], 2)[1],
+        "adamw": steps_profile(torch, lambda: adamw_update(
+            g, st.opt, st.params, AdamWConfig(lr=0.0))[2]["lr"], 2)[1]}
+    del g, st
+    need(losses[-1] < losses[0] and all(map(math.isfinite, losses)),
+         f"train: the loss on a repeated batch did not fall: {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del box, state, run, extra
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config: one step on the card and one on the CPU's
+    # plain path from the same params and batch, within STEP_TOL
+    rcfg = cfg.reduced()
+    rparams = model_init(rcfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    rbatch = next(SyntheticDataset(rcfg, DataConfig(TRAIN_BATCH, 32,
+                                                    seed=SEED)))
+    step = make_train_step(rcfg, AdamWConfig(lr=TRAIN_LR))
+    out = {}
+    for where in ("cpu", dev):
+        st = train_state_init(tree_map(lambda t: t.to(where), rparams))
+        new, m = step(st, {k: torch.from_numpy(v).to(where)
+                           for k, v in rbatch.items()})
+        out[str(where)] = (tree_map(lambda t: t.cpu(), new.params),
+                           float(m["loss"]), float(m["grad_norm"]))
+    (pc, lc, gc), (pd, ld, gd) = out["cpu"], out[str(dev)]
+    card_vs_cpu = step_deviation({"loss": ld, "grad_norm": gd, "params": pd},
+                                 {"loss": lc, "grad_norm": gc, "params": pc},
+                                 TRAIN_LR)
+    need(all(v <= STEP_TOL[k] for k, v in card_vs_cpu.items()),
+         f"train: reduced step, card vs CPU beyond STEP_TOL: {card_vs_cpu} "
+         f"(loss {ld} / {lc}, grad norm {gd} / {gc})")
+
+    secs = sorted(s["step_seconds"] for s in steps)
+    med = secs[len(secs) // 2]
+    b5_ms = sum(v for k, v in prof["port_kernels_ms_per_step"].items()
+                if "hist" in k)
+    rec = {
+        "model": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "refresh_every": TRAIN_REFRESH, "lr": TRAIN_LR,
+        "losses": [s["loss"] for s in steps],
+        "book_epochs": epochs, "refreshed_epoch": mgr.book_epoch,
+        "refreshes": refreshes,
+        "n_recompiles": mgr.n_recompiles,
+        "step_ms_median": med * 1e3, "step_ms_all": [s * 1e3 for s in secs],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+        "profile": prof, "parts": parts, "host_syncs_a_step": step_syncs,
+        "b5_device_ms_per_step": b5_ms,
+        "b5_share_of_device": b5_ms / prof["device_busy_ms_per_step"],
+        "grad_coded_over_raw_bootstrap": ratio_boot,
+        "grad_coded_over_raw_refreshed": ratio_new,
+        "repeated_batch_lr": TRAIN_LR / 10, "repeated_batch_losses": losses,
+        "peak_memory_gb": peak_gb,
+        "reduced_card_vs_cpu": {"loss": [ld, lc], "grad_norm": [gd, gc],
+                                "deviation": card_vs_cpu,
+                                "limits": {k: STEP_TOL[k]
+                                           for k in card_vs_cpu}},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    return rec, launches
+
+
+# -------------------------------------------------- lifecycle phase
+LIFE_NEW, LIFE_REFRESH = 16, 4
+
+
+def lifecycle_phase(torch, dev, params, cfg, books, prompts, card, build):
+    """Phase 8: ``launch.dryrun.drift_check`` at 8 ranks on the card and
+    the wire serve with book hot-refresh (see the module docstring).
+    Returns the record and the path's launch counts."""
+    from repro_torch.launch.dryrun import drift_check
+    from repro_torch.lifecycle import BookLifecycleManager, DriftThresholds
+    from repro_torch.serve import Engine, ServeConfig
+
+    t_phase = time.perf_counter()
+    mgr = BookLifecycleManager(thresholds=DriftThresholds(
+        kl_bits=0.0, excess_bits=0.0, min_symbols=1, patience=1))
+    for p, b in books.items():                  # the wire serve's books
+        mgr.install(("act", "bf16", p), b.source_counts)
+    spec = mgr.spec("act", "bf16", mode="bitexact", transport="chunked",
+                    chunk=CHUNK, decode_backend="multisym")
+    sc = ServeConfig(max_cache_len=PROMPT + LIFE_NEW)
+    # ---- the path: launch counts reset just before, read after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    drift = drift_check(n=8, device=dev)
+    eng = Engine(params, cfg, sc, spec, lifecycle=mgr,
+                 refresh_every=LIFE_REFRESH, device=dev)
+    t0 = time.perf_counter()
+    toks, totals = eng.generate(prompts, LIFE_NEW)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"lifecycle path: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches} [{card}]")
+
+    need(drift["status"] == "ok" and all(
+        v for v in drift.values() if isinstance(v, bool)),
+        f"drift_check on the card: {drift}")
+    need(totals["book_refreshes"] >= 1, f"hot refresh: no refresh in "
+         f"{LIFE_NEW} tokens ({totals})")
+    need(totals["act_decode_mismatch"] == 0.0,
+         f"hot refresh: {totals['act_decode_mismatch']} mismatches")
+    steps = eng.step_metrics
+    for i, m in enumerate(steps):               # the books of its epoch
+        in_force = eng.epoch_specs[int(m["book_epoch"])]
+        want = sum(int((m[f"act_hist_{p}"].astype("int64")
+                        * in_force.lengths_for(p)).sum())
+                   for p in ("lo", "hi"))
+        need(m["act_decoded_bits"] == m["act_coded_bits"] == float(want),
+             f"hot refresh step {i} (epoch {m['book_epoch']}): B2 bits "
+             f"{m['act_decoded_bits']} != B5 . lengths {want}")
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym"):
+        need(launches[k] > 0, f"lifecycle: kernel {k} was not launched")
+    plain = Engine(params, cfg, sc, spec, device=dev)
+    toks_plain, _ = plain.generate(prompts, LIFE_NEW)
+    need((toks == toks_plain).all(), "hot refresh: the tokens differ from "
+         "the engine's without lifecycle=")
+    epochs = [m["book_epoch"] for m in steps]
+    rec = {"drift_check": drift, "new_tokens": LIFE_NEW,
+           "refresh_every": LIFE_REFRESH,
+           "book_refreshes": totals["book_refreshes"],
+           "book_epochs": epochs, "n_recompiles": mgr.n_recompiles,
+           "coded_over_raw_by_step": [m["act_coded_bits"]
+                                      / m["act_raw_bits"] for m in steps],
+           "generate_s": wall,
+           "step_ms_median": sorted(m["step_seconds"] for m in steps)[
+               len(steps) // 2] * 1e3,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"hot refresh: {totals['book_refreshes']:g} refreshes, epochs "
+          f"{epochs}, tokens = plain engine's, every step lossless "
+          f"[{card}]")
     return rec, launches
 
 

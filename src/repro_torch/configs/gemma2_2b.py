@@ -4,6 +4,8 @@ import torch
 
 from ..models.common import BlockGroup, ModelConfig
 
+TRAIN_GRAD_ACCUM = 1
+
 CONFIG = ModelConfig(
     name="gemma2-2b",
     arch_type="dense",

@@ -1,8 +1,11 @@
-"""The compressed-ring and compressed-at-rest checks (port of
-``repro.launch.dryrun``'s ``--ring-check`` and ``--memstore-check``; the
-reference's other checks wait for their slices).
+"""The compressed-ring, codebook-lifecycle and compressed-at-rest
+checks (port of ``repro.launch.dryrun``'s ``--ring-check``,
+``--drift-check`` and ``--memstore-check``; the reference's lowering
+sweep waits for the port's mesh, ROADMAP.md A10).
 
     python -m repro_torch.launch.dryrun --ring-check [--device cpu]
+        [--codec huffman|qlc]
+    python -m repro_torch.launch.dryrun --drift-check [--device cpu]
         [--codec huffman|qlc]
     python -m repro_torch.launch.dryrun --memstore-check [--device cpu]
 
@@ -15,6 +18,16 @@ sums, gathers and permutes, and the ledgers to the analytic volumes:
 2(n−1)/n for all_reduce, (n−1)/n for reduce_scatter and all_to_all, the
 sum of the per-axis terms for the hierarchy.  ``--codec`` picks the
 books' codec.
+
+``drift_check`` proves the codebook lifecycle end to end on a loopback
+axis of n ranks (the reference's steps): books from a base integer
+payload; shifted traffic trips the drift monitor within its patience;
+the refresh opens a new epoch with a new content hash; ``ring_all_reduce``
+stays bit-exact against an uncoded float32 sum under the stale and the
+refreshed books, and the refreshed books code the shifted traffic
+strictly smaller; epoch agreement over the axis passes when every rank
+holds the new fingerprint and raises ``EpochSyncError`` when one lags.
+Its payloads are the reference's numpy draws from seed 0.
 
 ``memstore_check`` proves the compressed-at-rest serving path end to end
 under both registered codecs, on CUDA unless the caller names the CPU:
@@ -49,9 +62,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..comm.compression import histogram256
 from ..device import resolve_device
 
-__all__ = ["ring_check", "memstore_check", "memck_config", "main"]
+__all__ = ["ring_check", "drift_check", "memstore_check", "memck_config",
+           "main"]
 
 
 def ring_check(n: int = 8, payload: int = 4096, chunk: int = 512,
@@ -137,6 +152,125 @@ def ring_check(n: int = 8, payload: int = 4096, chunk: int = 512,
               f"device={dev} bitexact(ar/ag/rs/a2a/hier)={ar_exact}/"
               f"{ag_exact}/{rs_exact}/{a2a_exact}/{hier_exact} coded/raw="
               f"{rec['ar_coded_wire_bits'] / raw['ar']:.3f} "
+              f"status={rec['status']}", flush=True)
+    return rec
+
+
+def drift_check(n: int = 8, payload: int = 4096, chunk: int = 512,
+                codec: str = "huffman", *, device=None,
+                verbose: bool = True) -> Dict[str, Any]:
+    """Induce a distribution shift and prove the codebook lifecycle on a
+    loopback axis of ``n`` ranks (see the module docstring).  On CUDA
+    the ring hops run the kernels (B1, B2, the hop decoder, B5);
+    ``device="cpu"`` runs their plain versions.  Returns the record;
+    ``status`` is "ok" only if every check held."""
+    import numpy as np
+    from ..comm import LoopbackAxis, ring_all_reduce
+    from ..core.codebook import CodebookRegistry
+    from ..core.symbols import SCHEMES
+    from ..lifecycle import (BookLifecycleManager, DriftThresholds,
+                             EpochSyncError, epoch_fingerprint,
+                             verify_epoch_agreement)
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    kind = "act"
+    scheme = SCHEMES["bf16"]
+    mgr = BookLifecycleManager(CodebookRegistry(codec=codec),
+                               thresholds=DriftThresholds(
+                                   kl_bits=0.05, excess_bits=0.05,
+                                   min_symbols=1024, patience=2))
+
+    # Integer-valued payloads whose byte distribution shifts hard between
+    # phases; the n-way sums stay <= 256, so every value and every ring
+    # partial sum is exact in bf16 and the comparison is bit-for-bit.
+    def bf16(a):
+        return torch.from_numpy(a.astype(np.float32)).to(
+            torch.bfloat16).to(dev)
+
+    base = bf16(rng.integers(-2, 3, size=(n, payload)))
+    shifted = bf16(rng.integers(-32, 33, size=(n, payload)))
+
+    def hists(x):
+        return {p: histogram256(s).cpu().numpy()
+                for p, s in scheme.to_symbols(x).items()}
+
+    for plane, h in hists(base).items():
+        mgr.install((kind, "bf16", plane), h)
+    epoch0 = mgr.book_epoch
+    snap0 = mgr.snapshot
+
+    # --- 1. shifted traffic must trip the monitor within patience -----
+    shift_hists = hists(shifted)
+    windows = 0
+    while not mgr.stale_keys() and windows < 6:
+        for plane, h in shift_hists.items():
+            mgr.observe((kind, "bf16", plane), h)
+        windows += 1
+    stale_detected = bool(mgr.stale_keys())
+
+    # --- 2. monitored refresh opens a strictly newer epoch ------------
+    new_epoch = mgr.maybe_refresh()
+    epoch_flip_ok = (new_epoch == epoch0 + 1
+                     and mgr.snapshot.content_hash != snap0.content_hash)
+
+    # --- 3. ring all_reduce bit-exact under both epochs' books --------
+    ax = LoopbackAxis(n)
+    old_books = {p: snap0.get((kind, "bf16", p)) for p in scheme.planes}
+    new_books = mgr.books(kind, "bf16")
+    want = shifted.float().sum(0)
+
+    def check_books(books):
+        y, st = ring_all_reduce(shifted, ax, books, "bf16", chunk=chunk)
+        bad = int((y.float() != want).sum())
+        return bad == 0, float(st["coded_wire_bits"].sum())
+
+    stale_exact, stale_coded = check_books(old_books)
+    fresh_exact, fresh_coded = check_books(new_books)
+    coded_improved = fresh_coded < stale_coded
+
+    # --- 4. epoch agreement: unanimous passes, a laggard fails --------
+    fp_new = epoch_fingerprint(mgr)
+    agree_ok = True
+    try:
+        verify_epoch_agreement(np.tile(fp_new, (n, 1)), ax, device=dev)
+    except EpochSyncError:
+        agree_ok = False
+    mixed = np.tile(fp_new, (n, 1))
+    mixed[n // 2] = epoch_fingerprint(snap0)
+    mismatch_detected = False
+    try:
+        verify_epoch_agreement(mixed, ax, device=dev)
+    except EpochSyncError:
+        mismatch_detected = True
+
+    ok = (stale_detected and epoch_flip_ok and stale_exact and fresh_exact
+          and coded_improved and agree_ok and mismatch_detected)
+    rec = {
+        "kind": "drift_check", "axis": f"loopback {n}", "n_ranks": n,
+        "device": str(dev), "payload_elems": payload, "chunk": chunk,
+        "codec": codec, "stale_windows_to_signal": windows,
+        "stale_detected": stale_detected,
+        "epoch_before": epoch0, "epoch_after": int(new_epoch or -1),
+        "content_hash_before": snap0.content_hash,
+        "content_hash_after": mgr.snapshot.content_hash,
+        "epoch_flip_ok": epoch_flip_ok,
+        "bitexact_stale_books": stale_exact,
+        "bitexact_refreshed_books": fresh_exact,
+        "stale_coded_wire_bits": stale_coded,
+        "refreshed_coded_wire_bits": fresh_coded,
+        "coded_improved": coded_improved,
+        "epoch_agreement_ok": agree_ok,
+        "epoch_mismatch_detected": mismatch_detected,
+        "seconds": time.perf_counter() - t0,
+        "status": "ok" if ok else "FAILED",
+    }
+    if verbose:
+        print(f"[dryrun] drift-check n={n} codec={codec} device={dev} "
+              f"stale@{windows}w epoch {epoch0}→{new_epoch} "
+              f"bitexact(stale/fresh)={stale_exact}/{fresh_exact} "
+              f"coded {stale_coded:.0f}→{fresh_coded:.0f} "
+              f"agree={agree_ok} mismatch_raises={mismatch_detected} "
               f"status={rec['status']}", flush=True)
     return rec
 
@@ -347,8 +481,13 @@ def main(argv: Optional[list] = None) -> None:
                     help="run the ring collectives and the hierarchical "
                          "ring on a loopback axis; bit-check them against "
                          "plain torch collectives")
+    ap.add_argument("--drift-check", action="store_true",
+                    help="induce a distribution shift; verify stale-book "
+                         "detection, a bit-exact ring epoch flip, and a "
+                         "loud epoch-mismatch failure")
     ap.add_argument("--codec", default="huffman",
-                    help="entropy codec for --ring-check books")
+                    help="entropy codec for --ring-check and "
+                         "--drift-check books")
     ap.add_argument("--memstore-check", action="store_true",
                     help="prove the compressed-at-rest memory path: store "
                          "and KV round trips, fused decode_matmul vs its "
@@ -358,12 +497,16 @@ def main(argv: Optional[list] = None) -> None:
                          "the kernels' plain versions)")
     ap.add_argument("--out", default=None, help="write the record as JSON")
     args = ap.parse_args(argv)
-    if not (args.memstore_check or args.ring_check):
-        ap.error("nothing to do: pass --ring-check or --memstore-check")
+    if not (args.memstore_check or args.ring_check or args.drift_check):
+        ap.error("nothing to do: pass --ring-check, --drift-check or "
+                 "--memstore-check")
     rec = {}
     if args.ring_check:
         rec["ring_check"] = ring_check(codec=args.codec,
                                        device=args.device)
+    if args.drift_check:
+        rec["drift_check"] = drift_check(codec=args.codec,
+                                         device=args.device)
     if args.memstore_check:
         rec["memstore_check"] = memstore_check(device=args.device)
     if args.out:

@@ -8,13 +8,14 @@ axis, so ``models.convert.from_jax_params`` maps leaf to leaf.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 __all__ = ["BlockGroup", "ModelConfig", "truncated_normal_init",
-           "tree_map", "tree_stack", "tree_index"]
+           "tree_map", "tree_leaves", "tree_unflatten", "tree_stack",
+           "tree_index"]
 
 
 @dataclass(frozen=True)
@@ -49,6 +50,13 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
     kv_cache_dtype: Optional[Any] = None
+    # remat policy of ``forward_train``:
+    #   "none"           — save everything
+    #   "block"          — recompute each block in the backward
+    #   "save_mixer_ffn" — the reference's per-block remat that keeps the
+    #                      post-collective outputs; with no tensor-parallel
+    #                      collective in a block here, it is "block"
+    remat: str = "block"
     source: str = ""
 
     @property
@@ -61,6 +69,35 @@ class ModelConfig:
         for g in self.blocks:
             kinds = kinds + g.pattern * g.repeats
         return kinds
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """The ≤2-layer, d_model≤256 smoke variant of the same family,
+        with the reference's cuts (``repro.models.common.ModelConfig
+        .reduced``) of the fields a dense attention model has."""
+        short = []
+        for g in self.blocks:
+            if sum(b.n_layers for b in short) >= 2:
+                break
+            short.append(BlockGroup(g.pattern[:2] if g.repeats == 1
+                                    else g.pattern, 1))
+        d = min(self.d_model, 256)
+        nh = max(d // 64, 2)
+        nkv = max(min(self.n_kv_heads, nh) if self.n_kv_heads else nh, 1)
+        if self.n_kv_heads == 1:
+            nkv = 1
+        defaults = dict(
+            name=self.name + "-smoke", blocks=tuple(short), d_model=d,
+            n_heads=nh if self.n_heads else 0,
+            n_kv_heads=nkv if self.n_kv_heads else 0,
+            head_dim=32 if self.head_dim else 0,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=min(self.sliding_window, 64)
+            if self.sliding_window else 0,
+            remat="none",
+        )
+        defaults.update(overrides)
+        return replace(self, **defaults)
 
 
 def truncated_normal_init(shape, dtype, scale: float,
@@ -80,6 +117,36 @@ def tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of nested dicts/tuples/lists in the reference's order
+    (``jax.tree.leaves``: dict keys sorted, sequences in order), which
+    is not ``tree_map``'s insertion order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The tree shaped as ``like`` (keys in its own order) whose leaves,
+    in ``tree_leaves`` order, are ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def tree_stack(trees):

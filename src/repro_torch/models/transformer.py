@@ -1,5 +1,6 @@
 """Model assembly (port of ``repro.models.transformer``): init, the
-full-sequence forward, prefill and one-token decode.
+full-sequence forward (with autograd and per-block remat for training:
+``forward_train``), prefill and one-token decode.
 
 Parameters and caches keep the reference's tree: ``{"embed",
 "groups", "final_norm"}`` with one tuple of stacked sub-block trees per
@@ -12,16 +13,18 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .blocks import (block_apply, block_cache_init, block_decode, block_init,
                      block_prefill)
-from .common import ModelConfig, tree_index, tree_map, tree_stack
+from .common import (ModelConfig, tree_index, tree_leaves, tree_map,
+                     tree_stack, tree_unflatten)
 from .layers import (embed_apply, embed_init, rmsnorm_apply, rmsnorm_init,
                      unembed_apply)
 
-__all__ = ["model_init", "forward", "init_caches", "prefill", "decode_step",
-           "param_count"]
+__all__ = ["model_init", "forward", "forward_train", "init_caches",
+           "prefill", "decode_step", "param_count"]
 
 
 def model_init(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -68,6 +71,46 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
         x = block_apply(kind, p, x, cfg)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return unembed_apply(params["embed"], x, cfg)
+
+
+def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  *, with_stats: bool = False):
+    """Full-sequence forward for training: tokens (B, S) → (logits
+    (B, S, vocab), aux), differentiable by autograd.  Other batch keys
+    (``labels``, ``loss_mask``) are the loss's.
+
+    Each layer's parameters are ``unbind`` views of its group's stacked
+    leaves, so the backward writes each stacked gradient once (one
+    ``stack``), not once a layer.  ``cfg.remat`` "block" (and
+    "save_mixer_ffn", the same here: a block holds no collective)
+    recomputes each block in the backward
+    (``torch.utils.checkpoint``).  ``aux`` (the MoE balance loss) and
+    ``with_stats``' ``moe_wire_coded_bits`` are float32 zeros on the
+    dense blocks.
+    """
+    if "prefix_embeds" in batch:
+        raise NotImplementedError(
+            "prefix embeddings are not ported yet (the VLM/audio configs, "
+            "ROADMAP.md A8)")
+    if cfg.remat not in ("none", "block", "save_mixer_ffn"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    for bg, subs in zip(cfg.blocks, params["groups"]):
+        layers = [[a.unbind(0) for a in tree_leaves(sub)] for sub in subs]
+        for r in range(bg.repeats):
+            for si, kind in enumerate(bg.pattern):
+                p = tree_unflatten(subs[si], [u[r] for u in layers[si]])
+                if cfg.remat == "none":
+                    x = block_apply(kind, p, x, cfg)
+                else:
+                    x = checkpoint(block_apply, kind, p, x, cfg,
+                                   use_reentrant=False)
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed_apply(params["embed"], x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if with_stats:
+        return logits, aux, {"moe_wire_coded_bits": torch.zeros_like(aux)}
+    return logits, aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None,

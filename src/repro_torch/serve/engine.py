@@ -16,8 +16,13 @@ holds the KV cache in a ``memstore.CodedKVStore`` that codes each step's
 new slots and serves every step from a decoded read; ``hbm_stats``
 reports both ledgers.
 
-Not ported yet (each raises ``NotImplementedError``): ``lifecycle=``
-(ROADMAP A5), ``ep_degree > 1`` and prefix embeddings (MoE and VLM, A8).
+Book hot-refresh: ``lifecycle=`` (a ``lifecycle.BookLifecycleManager``)
+observes every step's activation histograms and, every
+``refresh_every`` tokens, lets the manager rebuild stale books; an epoch
+flip re-binds the spec and swaps in the step built for the new books.
+
+Not ported yet (each raises ``NotImplementedError``): ``ep_degree > 1``
+and prefix embeddings (MoE and VLM, ROADMAP.md A8).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ..comm.compression import CompressionSpec, payload_stats
 from ..comm.transport import decode_blocks, encode_planes, wire_factor
 from ..core.codec import get_codec
 from ..core.encoder import DEFAULT_CHUNK, chunk_counts_for, concat_chunks
-from ..device import resolve_device
+from ..device import metrics_to_host, resolve_device
 from ..models.common import ModelConfig
 from ..models.transformer import decode_step, prefill
 
@@ -156,19 +161,28 @@ class Engine:
 
     Runs on ``device`` (CUDA unless named); the parameters (or the
     param store) must already lie there.  ``generate`` takes one host
-    sync per decode step for the whole metrics dict (a coded KV cache
-    adds its own: see ``memstore.kvstore``), and keeps each step's scalar
-    metrics (plus its wall time, ``step_seconds``) in ``step_metrics``.
+    sync per decode step for its scalar metrics (a coded KV cache adds
+    its own: see ``memstore.kvstore``), and keeps each step's scalars
+    (plus its wall time, ``step_seconds``) in ``step_metrics``.
+
+    With a ``lifecycle`` manager the same copy carries the step's
+    ``act_hist_<plane>`` arrays too (kept in ``step_metrics``); the
+    engine feeds them into the manager and — every ``refresh_every``
+    generated tokens — lets it rebuild stale books.  An epoch flip
+    re-binds the spec to the new books and takes the step the manager's
+    epoch-keyed cache builds for them: between decode steps, never
+    inside one.  ``epoch_specs`` maps each book epoch of the last
+    ``generate`` call to the spec in force at it.
     """
 
     def __init__(self, params, model_cfg: ModelConfig, serve_cfg: ServeConfig,
                  comp_spec: Optional[CompressionSpec] = None,
                  tp_degree: int = 1, ep_degree: int = 1,
-                 lifecycle=None, param_store=None, kv_mode: str = "raw",
-                 device=None):
-        if lifecycle is not None:
-            raise NotImplementedError("lifecycle= (book hot-refresh) is not "
-                                      "ported yet (ROADMAP.md A5)")
+                 lifecycle=None, refresh_every: int = 16,
+                 param_store=None, kv_mode: str = "raw", device=None):
+        if lifecycle is not None and comp_spec is None:
+            raise ValueError("a lifecycle manager needs a comp_spec naming "
+                             "the tensor kind / scheme / wire config")
         if kv_mode not in ("raw", "coded"):
             raise ValueError(f"kv_mode must be 'raw' or 'coded', "
                              f"got {kv_mode!r}")
@@ -190,22 +204,31 @@ class Engine:
         self.cfg = model_cfg
         self.serve = serve_cfg
         self._spec = comp_spec
+        self._tp = tp_degree
+        self._ep = ep_degree
+        self.lifecycle = lifecycle
+        self.refresh_every = refresh_every
         self.kv_mode = kv_mode
         self._kv = self._make_kvstore() if kv_mode == "coded" else None
-        self._step = make_serve_step(model_cfg, comp_spec,
-                                     tp_degree=tp_degree)
+        self._step = self._compile_step()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(serve_cfg.seed)
         self.step_metrics: List[Dict[str, float]] = []
+        self.epoch_specs: Dict[int, CompressionSpec] = {}
 
     def _make_kvstore(self):
-        """The coded-KV store, with books from the spec's canonical plane
-        lengths (what a receiving peer rebuilds) or, without them, built
-        by the store from the first ingest's K/V through the param
-        store's codec.  Books are pinned per store, so ``generate`` makes
-        a fresh store per call."""
+        """The coded-KV store, with books resolved in preference order:
+        the lifecycle manager's current activation books, the spec's
+        canonical plane lengths (what a receiving peer rebuilds) or,
+        without either, books the store builds from the first ingest's
+        K/V through the param store's codec.  Books are pinned per store
+        — an epoch flip mid-generate must not re-key segments already
+        coded — so ``generate`` makes a fresh store per call."""
         from ..memstore.kvstore import DEFAULT_KV_CHUNK, CodedKVStore
         spec = self._spec
+        if self.lifecycle is not None:
+            books = self.lifecycle.books(spec.tensor_kind, spec.scheme_name)
+            return CodedKVStore(books, chunk=spec.chunk, device=self.device)
         if spec is not None and spec.enabled and spec.plane_lengths:
             codec = get_codec(spec.codec)
             books = {plane: codec.book_from_lengths(
@@ -218,6 +241,36 @@ class Engine:
                                 chunk=DEFAULT_KV_CHUNK, device=self.device)
         raise ValueError("kv_mode='coded' needs books: pass a comp_spec "
                          "with activation books, or a param_store")
+
+    def _compile_step(self):
+        """The decode step for the current spec: built directly, or
+        through the lifecycle's epoch-keyed cache under a name that
+        carries every build-changing knob (engine degrees and the spec's
+        whole wire config), so two engines sharing one manager never
+        share a step built for another configuration."""
+        def build(_=None):
+            return make_serve_step(self.cfg, self._spec, tp_degree=self._tp,
+                                   ep_degree=self._ep)
+        if self.lifecycle is None:
+            return build()
+        s = self._spec
+        name = (f"serve_step/{self.cfg.name}/{s.tensor_kind}"
+                f"/tp{self._tp}ep{self._ep}/{s.mode}/{s.scheme_name}"
+                f"/{s.transport}/c{s.chunk}/{s.decode_backend}/{s.carry}"
+                f"/{s.axes}")
+        return self.lifecycle.compiled(name, build)
+
+    def _maybe_refresh(self) -> bool:
+        """Let the manager rebuild stale books; swap in the new epoch's
+        spec and step.  Returns True on an epoch flip."""
+        if self.lifecycle is None:
+            return False
+        if self.lifecycle.maybe_refresh() is None:
+            return False
+        self._spec = self.lifecycle.respec(self._spec)
+        self._step = self._compile_step()
+        self.epoch_specs[self._spec.book_epoch] = self._spec
+        return True
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         last = logits[:, -1]
@@ -251,6 +304,8 @@ class Engine:
         out = [tok]
         totals: Dict[str, float] = {}
         self.step_metrics = []
+        self.epoch_specs = ({} if self._spec is None
+                            else {self._spec.book_epoch: self._spec})
         for i in range(max_new_tokens - 1):
             t0 = time.perf_counter()
             logits, caches, m = self._step(self.params, tok, caches,
@@ -259,17 +314,27 @@ class Engine:
                 self._kv.ingest(caches)
                 caches = self._kv.read(caches)
             tok = self._sample(logits)
-            keys = [k for k, v in m.items() if v.dim() == 0]
-            vals = torch.stack([m[k].to(torch.float64) for k in keys])
-            vals = vals.tolist()                # the step's one host sync
-            rec = dict(zip(keys, vals))
+            if self.lifecycle is None:          # only the lifecycle reads
+                m = {k: v for k, v in m.items() if v.dim() == 0}
+            rec = metrics_to_host(m)            # the step's one host sync
             rec["step_seconds"] = time.perf_counter() - t0
             self.step_metrics.append(rec)
-            for k, v in zip(keys, vals):
-                if k == "book_epoch":                  # level, not a count
+            for k, v in rec.items():
+                if not isinstance(v, float):           # per-plane histograms
+                    if (self.lifecycle is not None
+                            and k.startswith("act_hist_")):
+                        self.lifecycle.observe(
+                            (self._spec.tensor_kind, self._spec.scheme_name,
+                             k[len("act_hist_"):]), v)
+                elif k == "book_epoch":                # level, not a count
                     totals[k] = v
-                else:
+                elif k != "step_seconds":
                     totals[k] = totals.get(k, 0.0) + v
+            if (self.lifecycle is not None and self.refresh_every > 0
+                    and (i + 1) % self.refresh_every == 0
+                    and self._maybe_refresh()):
+                totals["book_refreshes"] = totals.get("book_refreshes",
+                                                      0.0) + 1.0
             out.append(tok)
         for k in _SCALARS + ("act_shannon_bits", "book_epoch"):
             totals.setdefault(k, 0.0)          # stable for 1-token gens
