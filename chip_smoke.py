@@ -121,9 +121,51 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    one refresh, every step lossless with B2 bits = B5 . the lengths of
    the epoch in force, the tokens of the same engine without
    ``lifecycle=`` (``launches_by_path["lifecycle"]``: B1, B2, B4, B5);
-9. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}`` and
-   one ``{"train": ...}`` record, one ``{"kernels": [...]}`` record
-   (B1-B8), then ``{"ok": true, "device": {...}}``.
+9. MoE: ``llama4-scout-17b-a16e`` at full width with its depth cut to 4
+   of 48 layers (10.88 B parameters from seed 0; the gemma2-2b weights
+   are freed first).  Launch counts are reset before and read after the
+   path (``launches_by_path["moe"]``): ``Engine(ep_degree=4)`` serving 4
+   x 64 prompts for 16 tokens through the bitexact wire (books from a
+   warm-up prefill's logits), one ``moe_apply_a2a_block`` of layer 0's
+   MoE on 8 x 512 hidden states over a loopback ``"model"`` mesh of 4
+   (2 sequences a rank, capacity 48, a 1 966 080-element shard a round),
+   and ``forward_train`` + backward of the model with ``moe_impl="a2a"``
+   on that mesh at batch 4 x 128.  Checked: every serve step lossless
+   with B2 bits = B5 . lengths, the tokens of the engine without books,
+   ``moe_wire_raw_bits`` = the analytic formula; a replay of the
+   engine's steps against one prefill of the whole sequence, each MoE
+   layer's inputs and each decode call's counts recorded: the decode's
+   counts (routed totals) equal ``moe_prefill``'s on the decode's own
+   inputs, every decode step keeps and drops exactly the slots that
+   ``_dispatch`` of the forward keeps and drops on those inputs, the
+   full-sequence counts differ from the decode's by exactly the tokens
+   whose top-1 expert flipped between the two hidden states (printed,
+   with the dropped slots), and the decode's logits agree with the
+   forward's within ``DECODE_TOL`` on the tokens before a sequence's
+   first flip, at least half of them; the a2a result equals
+   ``moe_apply`` bit for bit, every decoded receive buffer is the
+   uncoded permutation, every round's ``hop_coded_bits`` is a plain
+   histogram (``torch.bincount``) . lengths of what it ships, one B4
+   launch a plane a round, the block's coded bits the summed ledgers,
+   under the bootstrap books and under books built (B5) from the first
+   dispatch's payload (``configure_a2a_wire``); the recorded dispatch
+   and combine payloads through ``ring_all_to_all`` at the wire's chunk
+   (512) under both book sets, on the card and on CPU copies (the
+   kernels' plain versions): every hop's words and bit counts, the
+   stats and the result bit for bit; through the wire, with the aux loss off
+   (on, the a2a path's aux is the mean of per-rank losses, another
+   function), the loss within ``STEP_TOL`` of the scatter path's (its
+   bit-identity printed) and every gradient within its gradient limit,
+   ``moe_wire_coded_bits`` = the summed hop ledgers (the block remat runs
+   each wire twice).  Timed: the call, the scatter
+   path, the experts' products, each wire with its kernels' device ms;
+   the forward + backward's device ms and peak memory; then the
+   ``reduced()`` llama4 step on the card and the CPU within
+   ``STEP_TOL``;
+10. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+   one ``{"train": ...}`` and one ``{"moe": ...}`` record, one
+   ``{"kernels": [...]}`` record (B1-B8), then ``{"ok": true, "device":
+   {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -901,6 +943,13 @@ def main() -> int:
                 for k, spec in (("no_wire", None), *specs.items())}
         print(json.dumps({"card": card, "profile": prof}))
 
+    # ---------------- 9. MoE: llama4-scout-17b-a16e at full width (4 of 48)
+    phase("MoE: llama4-scout-17b-a16e at full width (4 of 48 layers)")
+    del params                              # the card holds llama4 alone
+    torch.cuda.empty_cache()
+    moe_rec, moe_launches = moe_phase(torch, dev, card, build)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- 5. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -913,7 +962,7 @@ def main() -> int:
     }
     paths = {"wire_serve": launches, "coded_at_rest": coded_launches,
              "ring": ring_launches, "train": train_launches,
-             "lifecycle": life_launches}
+             "lifecycle": life_launches, "moe": moe_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -957,6 +1006,7 @@ def main() -> int:
     print(json.dumps({"ring": ring}))
     print(json.dumps({"card": card, "lifecycle": life}))
     print(json.dumps({"card": card, "train": trained}))
+    print(json.dumps({"card": card, "moe": moe_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1736,6 +1786,29 @@ def recording_axes(torch, LoopbackAxis, sizes):
     return axes, sent
 
 
+def held_to_plain(torch, LoopbackAxis, name, fn, x, sizes):
+    """Runs ``fn(x, axes)`` on the card and on a CPU copy (the kernels'
+    plain versions) over recording loopback axes of ``sizes``; fails
+    unless every tensor moved (hop words, bit counts), every stat and
+    the result are equal bit for bit.  Returns (the card's result, its
+    number of tensors moved)."""
+    out = []
+    for d in (x.device, torch.device("cpu")):
+        axes, sent = recording_axes(torch, LoopbackAxis, sizes)
+        y, st = fn(x.to(d), axes)
+        out.append((y, st, sent))
+    (gy, gst, gsent), (cy, cst, csent) = out
+    need(len(gsent) == len(csent) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(gsent, csent)),
+         f"{name}: the card's hop words differ from the plain versions'")
+    need(set(gst) == set(cst) and all(
+        torch.equal(gst[k].cpu(), cst[k]) for k in gst),
+         f"{name}: stats differ from the plain versions'")
+    need(torch.equal(bits_of(torch, gy.cpu()), bits_of(torch, cy)),
+         f"{name}: result differs from the plain versions'")
+    return gy, len(gsent)
+
+
 def bits_of(torch, t):
     """A tensor's bit pattern as an integer tensor (for bitwise equality)."""
     ints = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
@@ -1795,7 +1868,7 @@ def ring_phase(torch, dev, params, cfg, books, step_logits, warm, card,
         h = embed_apply(params["embed"], warm, cfg)
         hid = []
         for _, _, _, kind, p in _layers(cfg, params):
-            h = block_apply(kind, p, h, cfg)
+            h, _, _ = block_apply(kind, p, h, cfg)
             hid.append(h.to(torch.bfloat16))
             if len(hid) == n:
                 break
@@ -2037,21 +2110,8 @@ def ring_phase(torch, dev, params, cfg, books, step_logits, warm, card,
         x = inputs.get(name, small)
         sizes = ({"outer": 2, "inner": 2} if name.startswith("hier")
                  else {"r": n})
-        out = []
-        for d in (dev, torch.device("cpu")):
-            axes, sent = recording_axes(torch, LoopbackAxis, sizes)
-            y, st = fn(x.to(d), axes)
-            out.append((y, st, sent))
-        (gy, gst, gsent), (cy, cst, csent) = out
-        need(len(gsent) == len(csent) and all(
-            torch.equal(a.cpu(), b) for a, b in zip(gsent, csent)),
-             f"{name}: the card's hop words differ from the plain versions'")
-        need(set(gst) == set(cst) and all(
-            torch.equal(gst[k].cpu(), cst[k]) for k in gst),
-             f"{name}: stats differ from the plain versions'")
-        need(torch.equal(bits_of(torch, gy.cpu()), bits_of(torch, cy)),
-             f"{name}: result differs from the plain versions'")
-        compared[name] = {"tensors_moved": len(gsent),
+        gy, moved = held_to_plain(torch, LoopbackAxis, name, fn, x, sizes)
+        compared[name] = {"tensors_moved": moved,
                           "symbols_a_rank": x[0].numel()}
         if gy.dtype == torch.float8_e4m3fn:
             nans = int(torch.isnan(gy.float()).sum())
@@ -2389,6 +2449,589 @@ def lifecycle_phase(torch, dev, params, cfg, books, prompts, card, build):
           f"{epochs}, tokens = plain engine's, every step lossless "
           f"[{card}]")
     return rec, launches
+
+
+# -------------------------------------------------------------- MoE phase
+MOE_ARCH, MOE_LAYERS, MOE_EP = "llama4-scout-17b-a16e", 4, 4
+MOE_NEW = 16
+A2A_BATCH, A2A_SEQ = 8, 512
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 128
+# decode-step logits vs the full-sequence forward (bf16, full width):
+# attention over the cache and over the sequence add in other orders
+DECODE_TOL = 5e-2
+
+
+class Recorder:
+    """Records what the MoE path's instrumented functions see: the wire's
+    (send, recv, stats) per all-to-all, each MoE layer's prefill input,
+    and each decode call's (input, counts before the step, pos).  A context manager: it patches
+    ``models.moe._a2a_wire`` and ``models.blocks.moe_prefill`` /
+    ``moe_decode`` on entry and restores them on exit."""
+
+    def __init__(self):
+        self.wire, self.prefill, self.decode = [], [], []
+
+    def __enter__(self):
+        from repro_torch.models import blocks, moe
+        self._saved = (moe._a2a_wire, blocks.moe_prefill, blocks.moe_decode)
+        wire0, pre0, dec0 = self._saved
+
+        def wire(send, *a):
+            recv, st = wire0(send, *a)
+            self.wire.append((send.detach(), recv.detach(), st))
+            return recv, st
+
+        def pre(params, x, cfg):
+            self.prefill.append(x.detach())
+            return pre0(params, x, cfg)
+
+        def dec(params, x, counts, pos, cfg):
+            self.decode.append((x.detach(), counts.clone(), pos))
+            return dec0(params, x, counts, pos, cfg)
+
+        moe._a2a_wire, blocks.moe_prefill, blocks.moe_decode = wire, pre, dec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks, moe
+        moe._a2a_wire, blocks.moe_prefill, blocks.moe_decode = self._saved
+        return False
+
+
+def port_kernel_ms(torch, fn, reps: int) -> dict:
+    """Device ms a call of ``fn``: each of the port's kernels (B1-B8) and
+    the rest of its device operations, from the profiler's events."""
+    out, other = {}, 0.0
+    for k, (us, _) in device_events(torch, fn, reps).items():
+        if k.startswith("(anonymous namespace)"):
+            name = k.split("::")[1].split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        else:
+            other += us / 1e3 / reps
+    out["other"] = other
+    return out
+
+
+def shipped_bits(torch, send, books, t: int) -> float:
+    """A plain histogram (``torch.bincount``, not B5) . lengths of what
+    round t of a loopback all-to-all ships (rank i sends its shard
+    (i + t) % n), over the ranks, divided by n: the ring's replicated
+    ``hop_coded_bits`` of that round."""
+    from repro_torch.core.symbols import SCHEMES
+    n = send.shape[0]
+    bits = 0
+    for i in range(n):
+        shard = send[i, (i + t) % n]
+        for p, sym in SCHEMES["bf16"].to_symbols(shard).items():
+            hist = torch.bincount(sym.reshape(-1).long(), minlength=256)
+            bits += books[p].encoded_bits(hist.cpu().numpy())
+    return bits / n
+
+
+def check_wire_calls(torch, calls, books, what: str) -> list:
+    """Every recorded all-to-all of a loopback MoE: the decoded receive
+    buffers are the uncoded permutation bit for bit, and each round's
+    ``hop_coded_bits`` is ``shipped_bits`` of what it ships.  Returns each
+    call's (coded, raw) wire bits."""
+    out = []
+    for c, (send, recv, st) in enumerate(calls):
+        need(torch.equal(bits_of(torch, recv),
+                         bits_of(torch, send.transpose(0, 1))),
+             f"{what} all-to-all {c}: decoded != the uncoded permutation")
+        hop = st["hop_coded_bits"][0].tolist()
+        for t in range(1, send.shape[0]):
+            want = shipped_bits(torch, send, books, t)
+            need(hop[t - 1] == want, f"{what} all-to-all {c} round {t}: "
+                 f"hop_coded_bits {hop[t - 1]} != histogram . lengths "
+                 f"{want}")
+        out.append((float(st["coded_wire_bits"].sum()),
+                    float(st["raw_wire_bits"].sum())))
+    return out
+
+
+def moe_phase(torch, dev, card, build):
+    """Phase 9: ``llama4-scout-17b-a16e`` at full width, 4 of its 48
+    layers (see the module docstring).  Returns the record and the
+    path's launch counts."""
+    from dataclasses import replace
+
+    from repro_torch.comm import LoopbackAxis, loopback_mesh, ring_all_to_all
+    from repro_torch.comm.compression import CompressionSpec, histogram256
+    from repro_torch.comm.transport import moe_dispatch_raw_bits, wire_factor
+    from repro_torch.configs import get_config
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models import (BlockGroup, decode_step, model_init,
+                                    param_count, prefill)
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_index, tree_leaves, tree_map
+    from repro_torch.models.layers import (attn_apply, embed_apply,
+                                           rmsnorm_apply)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import make_activation_probe
+    from repro_torch.train.step import (STEP_TOL, loss_and_grads,
+                                        make_train_step, step_deviation,
+                                        train_state_init)
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    cfg = replace(full, blocks=(BlockGroup(("attn_moe",), MOE_LAYERS),))
+    cut = (f"{MOE_ARCH} at full width, depth cut to {MOE_LAYERS} of "
+           f"{full.n_layers} layers")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+    n_params = param_count(params)
+    gb = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 1e9
+    print(f"{cut}: {n_params / 1e9:.4f} B parameters, {gb:.2f} GB "
+          f"[{card}]")
+    rec = {"model": MOE_ARCH, "layers": MOE_LAYERS,
+           "layers_full": full.n_layers, "cut": cut, "params": n_params,
+           "param_gb": gb, "card": card}
+
+    # ---- books for the serve wire: a warm-up prefill's logits (B5)
+    warm = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    with torch.no_grad():
+        wl, _ = prefill(params, {"tokens": warm}, cfg, PROMPT + MOE_NEW)
+    books = {p: build_codebook(histogram256(s).cpu().numpy(),
+                               key=("act", "bf16", p))
+             for p, s in SCHEMES["bf16"].to_symbols(
+                 wl[:, -1].to(torch.bfloat16)).items()}
+    del wl
+    spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                      mode="bitexact", transport="chunked",
+                                      chunk=CHUNK, decode_backend="multisym")
+    sc = ServeConfig(max_cache_len=PROMPT + MOE_NEW)
+    mesh = loopback_mesh({"model": MOE_EP})
+    # forward + backward compare one function on both paths: with the
+    # aux loss on, the a2a path's is the mean of per-rank losses (held
+    # on the CPU: tests/test_torch_moe.py)
+    quiet = replace(cfg, router_aux_weight=0.0)
+    a2a_cfg = replace(quiet, moe_impl="a2a")
+    p0 = tree_index(params["groups"][0][0], 0)
+    tok = torch.randint(0, cfg.vocab_size, (A2A_BATCH, A2A_SEQ),
+                        generator=gen, device=dev)
+    with torch.no_grad():                   # layer 0's MoE input, 8 x 512
+        h = embed_apply(params["embed"], tok, cfg)
+        h = h + attn_apply(p0["mixer"], rmsnorm_apply(
+            p0["norm_mix"], h, cfg.norm_eps), cfg)
+        hid = rmsnorm_apply(p0["norm_ffn"], h, cfg.norm_eps)
+    del h
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        SyntheticDataset(cfg, DataConfig(MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                                         seed=SEED))).items()}
+    saved_wire = dict(moe._A2A_WIRE)
+    moe._A2A_WIRE["books"] = None           # the bootstrap books
+    boot = moe._a2a_wire_books("bf16")
+
+    # ---- the path: serve through the wire (ep_degree 4 accounting), one
+    # compressed dispatch of a full-width layer, forward + backward
+    # through the wire; launch counts reset just before, read after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    eng = Engine(params, cfg, sc, spec, ep_degree=MOE_EP, device=dev)
+    t0 = time.perf_counter()
+    toks, totals = eng.generate(prompts, MOE_NEW)
+    serve_s = time.perf_counter() - t0
+    serve_launches = dict(build.LAUNCHES)
+    with Recorder() as r_call, torch.no_grad(), moe.use_mesh(mesh):
+        before = dict(build.LAUNCHES)
+        y_a2a, _, coded_a2a = moe.moe_apply_a2a_block(p0["ffn"], hid, cfg)
+        torch.cuda.synchronize()
+        call_launches = {k: build.LAUNCHES[k] - before[k]
+                         for k in build.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder() as r_train, moe.use_mesh(mesh):
+        t0 = time.perf_counter()
+        loss, (_, _, wire_bits), grads = loss_and_grads(params, tbatch,
+                                                        a2a_cfg)
+        torch.cuda.synchronize()
+        fb_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fb_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"moe path: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{launches} [{card}]")
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym"):
+        need(launches[k] > 0, f"moe: kernel {k} was not launched")
+
+    # ---- serve: lossless, B2 = B5 . lengths, the plain engine's tokens,
+    # the analytic dispatch wire
+    steps = eng.step_metrics
+    need(totals["act_decode_mismatch"] == 0.0,
+         f"moe serve: {totals['act_decode_mismatch']} mismatches")
+    for i, m in enumerate(steps):
+        need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
+             f"moe serve step {i}: B2 bits {m['act_decoded_bits']} != "
+             f"histogram . lengths {m['act_coded_bits']}")
+    per_step = wire_factor("all_to_all", MOE_EP) * moe_dispatch_raw_bits(
+        BATCH, cfg.experts_per_token, cfg.d_model, 16, MOE_LAYERS)
+    need(totals["moe_wire_raw_bits"] == per_step * (MOE_NEW - 1),
+         f"moe serve: moe_wire_raw_bits {totals['moe_wire_raw_bits']} != "
+         f"{per_step} x {MOE_NEW - 1}")
+    plain = Engine(params, cfg, sc, device=dev)
+    toks_plain, _ = plain.generate(prompts, MOE_NEW)
+    need((toks == toks_plain).all(), "moe serve: the tokens differ from "
+         "the engine's without books")
+    need(serve_launches["decode_chunks_multisym"] > 0,
+         "moe serve: B4 was not launched")
+    bare = sorted(m["step_seconds"] for m in plain.step_metrics)
+    step_s = sorted(m["step_seconds"] for m in steps)
+    serve = {"new_tokens": MOE_NEW, "ep_degree": MOE_EP,
+             "decode_step_ms_median": step_s[len(step_s) // 2] * 1e3,
+             "decode_step_ms_median_no_wire": bare[len(bare) // 2] * 1e3,
+             "generate_s": serve_s,
+             "coded_over_raw": totals["act_coded_bits"]
+             / totals["act_raw_bits"],
+             "moe_wire_raw_bits_per_step": per_step,
+             "launches": serve_launches}
+
+    # ---- decode against prefill: replay the engine's steps, then one
+    # prefill of the whole sequence; each MoE layer's inputs recorded
+    seq = torch.cat([prompts, torch.from_numpy(toks).to(dev)], dim=1)
+    n_seq = PROMPT + MOE_NEW - 1
+    with Recorder() as r_dec, torch.no_grad():
+        _, caches = prefill(params, {"tokens": prompts}, cfg,
+                            PROMPT + MOE_NEW)
+        outs = []
+        for t in range(PROMPT, n_seq):
+            lg, caches = decode_step(params, seq[:, t:t + 1], caches, t, cfg)
+            outs.append(lg[:, 0].float())
+    with Recorder() as r_full, torch.no_grad():
+        lg_full, full_caches = prefill(params, {"tokens": seq[:, :n_seq]},
+                                       cfg, PROMPT + MOE_NEW)
+    dec_logits = torch.stack(outs, dim=1)
+    full_logits = lg_full[:, PROMPT:n_seq].float()
+    flipped = torch.zeros((BATCH, n_seq), dtype=torch.bool, device=dev)
+    n_flips, dropped, slots, dec_dropped = 0, 0, 0, 0
+    e = cfg.n_experts
+    cap = moe.moe_stream_capacity_host(n_seq, cfg)
+    for layer in range(MOE_LAYERS):
+        lp = tree_index(params["groups"][0][0], layer)["ffn"]
+        steps_in = [r_dec.decode[s * MOE_LAYERS + layer]
+                    for s in range(n_seq - PROMPT)]
+        x_dec = torch.cat([r_dec.prefill[layer]]
+                          + [x for x, _, _ in steps_in], dim=1)
+        x_full = r_full.prefill[layer]
+        counts_dec = caches[0][0]["moe_counts"][layer]
+        counts_full = full_caches[0][0]["moe_counts"][layer]
+        # the decode's routed totals (kept and dropped) are the forward's
+        # on the decode's own inputs
+        _, _, c_same = moe.moe_prefill(lp, x_dec, cfg)
+        need(torch.equal(c_same, counts_dec), f"moe layer {layer}: the "
+             f"decode's counts != moe_prefill's on the decode's inputs")
+        # the decode keeps a slot iff the forward's dispatch does: its
+        # counts before the step against the capacity at pos + 1, and
+        # the slots that _dispatch on the same inputs sends to the buffer
+        ti_d = moe._route(lp, x_dec.reshape(-1, cfg.d_model), cfg)[1]
+        _, slot_d, _ = moe._dispatch(x_dec, ti_d.reshape(BATCH, n_seq, -1),
+                                     cfg, cap)
+        kept_fwd = (slot_d != BATCH * e * cap).reshape(
+            BATCH, n_seq, -1)[:, PROMPT:]
+        kept_dec = torch.stack([
+            before.gather(1, moe._route_probs(
+                lp, x.reshape(BATCH, cfg.d_model), cfg)[1])
+            < moe.moe_stream_capacity_host(pos + 1, cfg)
+            for x, before, pos in steps_in], dim=1)
+        need(torch.equal(kept_dec, kept_fwd), f"moe layer {layer}: the "
+             f"decode's kept slots != the forward dispatch's")
+        dec_dropped += int((~kept_dec).sum())
+        # against the fresh full-sequence prefill: any difference is a
+        # token whose hidden state took the other expert (a routing flip)
+        ti_f = moe._route(lp, x_full.reshape(-1, cfg.d_model), cfg)[1]
+        flip = (ti_d != ti_f).any(-1).reshape(BATCH, n_seq)
+
+        def oh(ti):
+            return torch.nn.functional.one_hot(ti, e).sum(1).reshape(
+                BATCH, n_seq, e)
+
+        delta = ((oh(ti_f) - oh(ti_d)) * flip[..., None]).sum(1)
+        need(torch.equal((counts_full - counts_dec).to(delta.dtype), delta),
+             f"moe layer {layer}: full-sequence counts - decode counts "
+             f"!= the routing flips' difference")
+        flipped |= flip
+        n_flips += int(flip.sum())
+        _, slot, _ = moe._dispatch(x_full, ti_f.reshape(BATCH, n_seq, -1),
+                                   cfg, cap)
+        dropped += int((slot == BATCH * e * cap).sum())
+        slots += slot.numel()
+    err = ((dec_logits - full_logits).abs().amax(-1)
+           / full_logits.abs().amax(-1))           # (B, steps)
+    # a flip changes its token's later layers and, through their keys and
+    # values, every later token: the tokens before a sequence's first
+    # flip are the ones the two paths compute alike
+    clean = torch.cumsum(flipped.to(torch.int32), dim=1)[:, PROMPT:n_seq] == 0
+    need(int(clean.sum()) >= clean.numel() // 2, f"moe decode vs full "
+         f"forward: {int(clean.sum())} of {clean.numel()} tokens before a "
+         f"routing flip, fewer than half")
+    worst = float(err[clean].max())
+    need(bool(torch.isfinite(dec_logits).all()) and worst < DECODE_TOL,
+         f"moe decode vs full forward: rel err {worst} (tokens before a "
+         f"routing flip)")
+    # a decode step's device time, the model's and the wire probe's (the
+    # counts are read above: the repeated step only rewrites its slot)
+    probe = make_activation_probe(spec)
+    last = seq[:, n_seq - 1:n_seq]
+    with torch.no_grad():
+        step_dev, step_ops = device_ms(torch, lambda: decode_step(
+            params, last, caches, n_seq - 1, cfg)[0], 3)
+        probe_dev, probe_ops = device_ms(
+            torch, lambda: probe(lg), 3)
+    table = params["embed"]["table"]          # a step reads B rows of it
+    read_gb = gb - table.numel() * table.element_size() / 1e9
+    serve.update(decode_step_device_ms=step_dev,
+                 decode_step_weight_gb=read_gb,
+                 decode_step_device_ops=step_ops,
+                 wire_probe_device_ms=probe_dev,
+                 wire_probe_device_ops=probe_ops)
+    serve.update(decode_vs_forward_rel_err=worst,
+                 decode_vs_forward_rel_err_all=float(err.max()),
+                 decode_tokens_checked=int(clean.sum()),
+                 routing_flips=n_flips, tokens_with_a_flip=int(
+                     flipped.sum()), dropped_slots=dropped,
+                 decode_dropped_slots=dec_dropped,
+                 routed_slots=slots, counts_equal=n_flips == 0)
+    print(f"moe serve: decode step {serve['decode_step_ms_median']:.3f} ms "
+          f"median ({serve['decode_step_ms_median_no_wire']:.3f} ms without "
+          f"the wire), coded/raw {serve['coded_over_raw']:.4f}, "
+          f"moe_wire_raw_bits {per_step:.0f} a step; decode vs forward rel "
+          f"err {worst:.3e} ({int(clean.sum())} of {clean.numel()} tokens "
+          f"before a flip; all {float(err.max()):.3e}); routing flips "
+          f"{n_flips}; dropped slots {dropped} of {slots} ({dec_dropped} "
+          f"of them in the decode steps, as the forward drops them) "
+          f"({cut}) [{card}]")
+    print(f"moe serve: a decode step {step_dev:.3f} ms device "
+          f"({step_ops:.0f} device ops), its wire probe {probe_dev:.3f} ms "
+          f"({probe_ops:.0f}); weights a step reads {read_gb:.2f} GB, "
+          f"{read_gb * 1e12 / HBM_BYTES_PER_S:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]")
+    rec["serve"] = serve
+    del caches, full_caches, r_dec, r_full, lg_full, eng, plain
+
+    # ---- the compressed dispatch of one full-width layer, 8 x 512
+    y_sc, _ = moe.moe_apply(p0["ffn"], hid, cfg)
+    exact = torch.equal(bits_of(torch, y_a2a), bits_of(torch, y_sc))
+    diff = float((y_a2a.float() - y_sc.float()).abs().max()
+                 / y_sc.float().abs().max())
+    # the same rows reach each expert through the same call: bit for bit
+    need(exact, f"moe a2a: y != moe_apply bit for bit (max rel {diff})")
+    need(len(r_call.wire) == 2, f"moe a2a: {len(r_call.wire)} all-to-alls")
+    wire_boot = check_wire_calls(torch, r_call.wire, boot, "moe a2a")
+    rounds = MOE_EP - 1
+    for k in ("decode_chunks_multisym", "encode_lookup", "pack_blocks"):
+        need(call_launches[k] == 2 * 2 * rounds, f"moe a2a: "
+             f"{call_launches[k]} {k} launches for 2 x {rounds} rounds "
+             f"of 2 planes")
+    need(float(coded_a2a) == sum(c for c, _ in wire_boot),
+         f"moe a2a: the block's coded bits {float(coded_a2a)} != the "
+         f"summed hop ledgers")
+    send_d, recv_d, _ = r_call.wire[0]
+    send_c, _, _ = r_call.wire[1]
+    cap = moe.moe_stream_capacity_host(A2A_SEQ, cfg)
+    need(send_d[0, 0].numel() == A2A_BATCH // MOE_EP * cfg.n_experts
+         // MOE_EP * cap * cfg.d_model, f"moe a2a: shard {send_d.shape}")
+
+    def call():
+        with moe.use_mesh(mesh):
+            return moe.moe_apply_a2a_block(p0["ffn"], hid, cfg)[2]
+
+    weights = moe._expert_weights(p0["ffn"])
+    e_loc = cfg.n_experts // MOE_EP
+    hbuf = recv_d.reshape(MOE_EP, -1, e_loc, cap, cfg.d_model)
+    ax = LoopbackAxis(MOE_EP)
+    fns = {
+        "a2a_block": call,
+        "scatter": lambda: moe.moe_apply(p0["ffn"], hid, cfg)[0],
+        "experts": lambda: [moe._experts(hbuf[i], weights[
+            i * e_loc:(i + 1) * e_loc], cfg) for i in range(MOE_EP)],
+        "dispatch_wire": lambda: ring_all_to_all(
+            send_d, ax, boot, chunk=moe._A2A_WIRE["chunk"],
+            decode_backend=moe._A2A_WIRE["decode_backend"]),
+        "combine_wire": lambda: ring_all_to_all(
+            send_c, ax, boot, chunk=moe._A2A_WIRE["chunk"],
+            decode_backend=moe._A2A_WIRE["decode_backend"]),
+    }
+    with torch.no_grad():
+        times = {}
+        for k, fn in fns.items():
+            r = {"ms": cuda_ms(torch, fn, 3)}
+            r["device_ms"], r["device_ops"] = device_ms(torch, fn, 3)
+            times[k] = r
+        parts = {k: port_kernel_ms(torch, fns[k], 3)
+                 for k in ("dispatch_wire", "combine_wire")}
+        # books built by B5 from the first dispatch's own payload
+        own = {p: build_codebook(histogram256(s).cpu().numpy(),
+                                 key=("moe_dispatch", "bf16", p))
+               for p, s in SCHEMES["bf16"].to_symbols(send_d).items()}
+        moe.configure_a2a_wire(own)
+        with Recorder() as r_own, moe.use_mesh(mesh):
+            y_own, _, coded_own = moe.moe_apply_a2a_block(p0["ffn"], hid,
+                                                          cfg)
+        need(torch.equal(bits_of(torch, y_own), bits_of(torch, y_a2a)),
+             "moe a2a: the result moved with the books")
+        wire_own = check_wire_calls(torch, r_own.wire, own, "moe a2a "
+                                    "(own books)")
+        need(float(coded_own) == sum(c for c, _ in wire_own),
+             f"moe a2a (own books): the block's coded bits "
+             f"{float(coded_own)} != the summed hop ledgers")
+        # the wire's kernels against their plain versions on the main
+        # path's payloads and shapes (chunk 512, zero-filled capacity
+        # rows), under both book sets
+        t0 = time.perf_counter()
+        vs_plain = {}
+        for bname, bk in (("bootstrap", boot), ("own_books", own)):
+            for wname, send in (("dispatch", send_d), ("combine", send_c)):
+                _, moved = held_to_plain(
+                    torch, LoopbackAxis, f"moe a2a {wname} ({bname})",
+                    lambda x, a: ring_all_to_all(
+                        x, a["r"], bk, chunk=moe._A2A_WIRE["chunk"],
+                        decode_backend=moe._A2A_WIRE["decode_backend"]),
+                    send, {"r": MOE_EP})
+                vs_plain[f"{wname}_{bname}"] = moved
+        vs_plain_s = time.perf_counter() - t0
+        print(f"moe a2a wire vs plain (dispatch and combine, both book "
+              f"sets, chunk {moe._A2A_WIRE['chunk']}): every hop's words "
+              f"and bits, the stats and the results equal "
+              f"({vs_plain_s:.1f} s)")
+    moe._A2A_WIRE.clear()
+    moe._A2A_WIRE.update(saved_wire)
+    ratio = {f"{w}_{b}": c / r for b, calls in (("bootstrap", wire_boot),
+                                               ("own_books", wire_own))
+             for w, (c, r) in zip(("dispatch", "combine"), calls)}
+    rec["a2a"] = {
+        "batch": A2A_BATCH, "seq": A2A_SEQ, "ranks": MOE_EP,
+        "capacity": cap, "shard_elements": send_d[0, 0].numel(),
+        "chunk": moe._A2A_WIRE["chunk"], "y_bit_identical": exact,
+        "y_rel_diff": diff, "launches": call_launches, "times": times,
+        "wire_parts_ms_per_call": parts, "coded_over_raw": ratio,
+        "kernels_vs_plain": {"tensors_moved": vs_plain,
+                             "seconds": vs_plain_s},
+        "hop_coded_bits": {
+            "bootstrap": [c[2]["hop_coded_bits"][0].tolist()
+                          for c in r_call.wire],
+            "own_books": [c[2]["hop_coded_bits"][0].tolist()
+                          for c in r_own.wire]}}
+    print(f"moe a2a ({A2A_BATCH} x {A2A_SEQ}, {MOE_EP} ranks, capacity "
+          f"{cap}, {send_d[0, 0].numel()} elements a shard a round): y "
+          f"{'bit-identical to' if exact else f'rel {diff:.3e} from'} "
+          f"moe_apply; coded/raw " + ", ".join(
+              f"{k} {v:.4f}" for k, v in ratio.items()) + f" [{card}]")
+    for k, r in times.items():
+        print(f"  {k}: {r['ms']:.3f} ms (device {r['device_ms']:.3f} ms, "
+              f"{r['device_ops']:.0f} device ops) [{card}]")
+    for k, r in parts.items():
+        print(f"  {k} device ms a call by kernel: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in r.items()) + f" [{card}]")
+    del r_call, r_own, send_d, recv_d, send_c, hbuf, fns, y_own
+
+    # ---- forward + backward through the wire against the scatter path
+    need(len(r_train.wire) == 4 * MOE_LAYERS,     # forward + block remat
+         f"moe train: {len(r_train.wire)} all-to-alls")
+    ledger = sum(float(c[2]["hop_coded_bits"].sum()) for c in r_train.wire)
+    need(float(wire_bits) > 0 and 2 * float(wire_bits) == ledger,
+         f"moe train: moe_wire_coded_bits {float(wire_bits)} != the summed "
+         f"hop ledgers {ledger / 2} (forward; the remat re-run again)")
+    del r_train
+    host = [g.cpu() for g in tree_leaves(grads)]  # 22 GB: held off the card
+    del grads
+    torch.cuda.empty_cache()
+    loss_s, _, g_s = loss_and_grads(params, tbatch, quiet)
+    loss_exact = torch.equal(loss, loss_s)
+    loss_dev = abs(float(loss) - float(loss_s)) / abs(float(loss_s))
+    need(loss_dev <= STEP_TOL["loss"], f"moe train: loss {float(loss)} vs "
+         f"the scatter path's {float(loss_s)}")
+    names = tree_leaves(tree_map_names(params))
+    grad_dev, worst_leaf, exact_leaves = 0.0, "", 0
+    for name, ga, gs in zip(names, host, tree_leaves(g_s)):
+        ga = ga.to(dev)
+        d = max_rel_diff(torch, ga, gs)
+        exact_leaves += int(torch.equal(bits_of(torch, ga),
+                                        bits_of(torch, gs)))
+        if d >= grad_dev:
+            grad_dev, worst_leaf = d, name
+    need(grad_dev <= STEP_TOL["grads"], f"moe train: gradients {grad_dev} "
+         f"of a leaf's max ({worst_leaf}) from the scatter path's")
+    del host, g_s
+    torch.cuda.empty_cache()
+    with moe.use_mesh(mesh):
+        fb_dev, fb_ops = device_ms(torch, lambda: loss_and_grads(
+            params, tbatch, a2a_cfg)[0], 1)
+    rec["train"] = {
+        "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ,
+        "router_aux_weight": 0.0, "loss": float(loss),
+        "loss_scatter": float(loss_s), "loss_bit_identical": loss_exact,
+        "loss_rel_dev": loss_dev, "grads_max_rel_dev": grad_dev,
+        "grads_worst_leaf": worst_leaf,
+        "leaves_bit_identical": exact_leaves, "leaves": len(names),
+        "moe_wire_coded_bits": float(wire_bits),
+        "forward_backward_s": fb_s, "device_ms": fb_dev,
+        "device_ops": fb_ops, "peak_memory_gb": fb_peak}
+    print(f"moe forward + backward through the wire ({MOE_TRAIN_BATCH} x "
+          f"{MOE_TRAIN_SEQ}, aux weight 0, {cut}): loss {float(loss):.6f} "
+          f"(scatter {float(loss_s):.6f}, "
+          f"{'bit-identical' if loss_exact else f'rel {loss_dev:.3e}'}), "
+          f"gradients within {grad_dev:.3e} of a leaf's max ({exact_leaves}"
+          f" of {len(names)} leaves bit-identical), moe_wire_coded_bits "
+          f"{float(wire_bits):.0f}; device {fb_dev:.2f} ms, peak memory "
+          f"{fb_peak:.2f} GB [{card}]")
+    del params, tbatch, hid, y_a2a, y_sc
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config: one step on the card and one on the CPU
+    rcfg = full.reduced()
+    rparams = model_init(rcfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    rbatch = next(SyntheticDataset(rcfg, DataConfig(TRAIN_BATCH, 32,
+                                                    seed=SEED)))
+    step = make_train_step(rcfg, AdamWConfig(lr=TRAIN_LR))
+    out = {}
+    for where in ("cpu", dev):
+        st = train_state_init(tree_map(lambda t: t.to(where), rparams))
+        new, m = step(st, {k: torch.from_numpy(v).to(where)
+                           for k, v in rbatch.items()})
+        out[str(where)] = (tree_map(lambda t: t.cpu(), new.params),
+                           float(m["loss"]), float(m["grad_norm"]))
+    (pc, lc, gc), (pd, ld, gd) = out["cpu"], out[str(dev)]
+    card_vs_cpu = step_deviation({"loss": ld, "grad_norm": gd, "params": pd},
+                                 {"loss": lc, "grad_norm": gc, "params": pc},
+                                 TRAIN_LR)
+    need(all(v <= STEP_TOL[k] for k, v in card_vs_cpu.items()),
+         f"moe: reduced step, card vs CPU beyond STEP_TOL: {card_vs_cpu}")
+    rec["reduced_card_vs_cpu"] = {"loss": [ld, lc], "grad_norm": [gd, gc],
+                                  "deviation": card_vs_cpu}
+    print(f"moe reduced step, card vs CPU: {card_vs_cpu} [{card}]")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+def tree_map_names(tree, prefix=""):
+    """The tree with each leaf replaced by its path ("a/b/0/c")."""
+    if isinstance(tree, dict):
+        return {k: tree_map_names(v, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_names(v, f"{prefix}/{i}")
+                          for i, v in enumerate(tree))
+    return prefix
+
+
+def max_rel_diff(torch, a, b, block: int = 1 << 26) -> float:
+    """max |a - b| / max |b| in float32, a block of elements at a time
+    (a full-width expert gradient is 5.4 GB in bf16)."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    diff = top = 0.0
+    for i in range(0, fa.numel(), block):
+        x, y = fa[i:i + block].float(), fb[i:i + block].float()
+        diff = max(diff, float((x - y).abs().max()))
+        top = max(top, float(y.abs().max()))
+    return diff / top
 
 
 def b_decode(book, words, sym):

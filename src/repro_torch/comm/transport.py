@@ -55,7 +55,7 @@ __all__ = [
     "reduce_scatter_compressed", "all_to_all_compressed",
     "encode_planes", "decode_plane", "decode_blocks", "decode_gathered_chunk",
     "reassemble", "planes_of", "RING_FACTORS", "wire_factor",
-    "moe_dispatch_raw_bits",
+    "moe_dispatch_raw_bits", "moe_ep_raw_bits",
     "DEFAULT_DECODE_BACKEND",
 ]
 
@@ -89,6 +89,21 @@ def moe_dispatch_raw_bits(n_tokens: int, experts_per_token: int,
     back (combine), per MoE layer."""
     return float(n_tokens * experts_per_token * d_model * symbol_bits
                  * 2 * n_moe_layers)
+
+
+def moe_ep_raw_bits(model_cfg, n_tokens: int, symbol_bits: int,
+                    ep_degree: int) -> Tuple[float, float]:
+    """(dispatch, wire) raw bits of one pass of ``n_tokens`` tokens
+    through ``model_cfg``'s MoE layers: ``moe_dispatch_raw_bits``, and
+    that times the ``ep_degree``-way all-to-all factor, as the
+    reference's serve and train steps account them; (0, 0) without
+    expert parallelism or an MoE layer."""
+    n_moe = sum(1 for kind in model_cfg.layer_kinds if "moe" in kind)
+    if ep_degree <= 1 or not n_moe:
+        return 0.0, 0.0
+    dispatch = moe_dispatch_raw_bits(n_tokens, model_cfg.experts_per_token,
+                                     model_cfg.d_model, symbol_bits, n_moe)
+    return dispatch, wire_factor("all_to_all", ep_degree) * dispatch
 
 
 def _require_wire_carry(name: str, carry: str) -> None:

@@ -1,15 +1,25 @@
-"""Architecture registry (port of ``repro.configs``): ``gemma2-2b`` so
-far; the reference's other architectures need block kinds that are not
-ported yet (ROADMAP.md A8)."""
+"""Architecture registry (port of ``repro.configs``): the configs whose
+block kinds are ported (dense attention and MoE); ``recurrentgemma-9b``,
+``deepseek-v3-671b``, ``mamba2-780m``, ``hubert-xlarge`` and
+``internvl2-26b`` wait for the RG-LRU, MLA and Mamba-2 kinds and prefix
+embeddings (ROADMAP.md A8)."""
 from __future__ import annotations
 
 import importlib
 
 from ..models.common import ModelConfig
 
-__all__ = ["get_config", "train_grad_accum"]
+__all__ = ["ARCH_IDS", "get_config", "train_grad_accum"]
 
-_MODULES = {"gemma2-2b": "gemma2_2b"}
+_MODULES = {
+    "gemma2-2b": "gemma2_2b",
+    "qwen3-4b": "qwen3_4b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "command-r-35b": "command_r_35b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+}
+ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):

@@ -23,7 +23,7 @@ import torch
 from ..checkpoint import save_pytree
 from ..comm.compression import histogram256
 from ..comm.ledger import CollectiveLedger
-from ..configs import get_config, train_grad_accum
+from ..configs import ARCH_IDS, get_config, train_grad_accum
 from ..core.symbols import bf16_planes
 from ..data import DataConfig, SyntheticDataset
 from ..device import metrics_to_host, resolve_device
@@ -131,7 +131,7 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
 
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="gemma2-2b", choices=("gemma2-2b",))
+    ap.add_argument("--arch", default="gemma2-2b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant (CPU-friendly)")
     ap.add_argument("--steps", type=int, default=20)

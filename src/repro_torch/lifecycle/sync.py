@@ -32,13 +32,7 @@ from ..core.codebook import CodebookRegistry, RegistrySnapshot
 from ..device import resolve_device
 
 __all__ = ["EpochSyncError", "epoch_fingerprint", "epoch_agreement",
-           "verify_epoch_agreement", "A2A_WIRE_FINGERPRINT"]
-
-# What the reference's ``models.moe.a2a_wire_fingerprint()`` returns in
-# a process that never configured the MoE all-to-all wire.  The port has
-# no MoE dispatch yet (ROADMAP.md A8), so every replica folds this
-# constant, and fingerprints agree across the two packages.
-A2A_WIRE_FINGERPRINT = "a2a:unconfigured"
+           "verify_epoch_agreement"]
 
 
 class EpochSyncError(RuntimeError):
@@ -52,9 +46,12 @@ def epoch_fingerprint(state: Union[RegistrySnapshot, CodebookRegistry,
     Accepts a ``RegistrySnapshot``, a ``CodebookRegistry`` or a
     ``BookLifecycleManager`` (anything exposing ``snapshot``).  The
     digest covers the registry content hash — which covers each book's
-    codec identity — plus the MoE a2a wire term
-    (``A2A_WIRE_FINGERPRINT``), exactly as the reference folds them.
+    codec identity — plus the process-global MoE a2a wire config
+    (``models.moe.a2a_wire_fingerprint``), exactly as the reference
+    folds them: its books are coding content the registry cannot see.
     """
+    from ..models.moe import a2a_wire_fingerprint
+
     snap = state
     if isinstance(state, CodebookRegistry):
         snap = state.snapshot()
@@ -64,7 +61,7 @@ def epoch_fingerprint(state: Union[RegistrySnapshot, CodebookRegistry,
         if not isinstance(snap, RegistrySnapshot):
             raise TypeError(f"cannot fingerprint {type(state).__name__}")
     content = hashlib.sha256(
-        (snap.content_hash + "\x1e" + A2A_WIRE_FINGERPRINT).encode())
+        (snap.content_hash + "\x1e" + a2a_wire_fingerprint()).encode())
     digest = int(content.hexdigest()[:8], 16)
     return np.array([snap.epoch & 0xFFFFFFFF, digest], dtype=np.uint32)
 

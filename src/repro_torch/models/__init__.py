@@ -1,5 +1,7 @@
-"""Dense attention transformer (port of ``repro.models``; the ``attn``
-and ``local`` block kinds)."""
+"""Attention transformer with dense and MoE FFNs (port of
+``repro.models``; the ``attn``, ``local``, ``attn_moe`` and
+``local_moe`` block kinds, ``models.moe`` for the experts and their
+compressed expert-parallel dispatch)."""
 from .common import BlockGroup, ModelConfig
 from .transformer import (decode_step, forward, forward_train, init_caches,
                           model_init, param_count, prefill)

@@ -1,75 +1,134 @@
-"""Block kinds (port of ``repro.models.blocks``): pre-norm attention +
-gated MLP with residuals.
+"""Block kinds (port of ``repro.models.blocks``): pre-norm sequence
+mixer + FFN with residuals.
 
-Ported kinds: ``attn`` (GQA attention + dense MLP) and ``local``
-(sliding-window attention + dense MLP).  The reference's other kinds
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Ported kinds (the reference's ``_parse`` table):
+  attn        GQA attention + dense gated MLP
+  local       sliding-window attention + dense MLP
+  attn_moe    GQA attention + MoE
+  local_moe   windowed attention + MoE
+
+The MLA, RG-LRU and Mamba-2 kinds raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.  ``block_apply`` returns (x, aux,
+wire): aux is the MoE load-balance loss (0 elsewhere), wire the
+measured coded bits of the block's compressed MoE dispatch (non-zero
+only under ``moe_impl="a2a"`` on a mesh).  An MoE block's cache is
+``{"mixer": ..., "moe_counts": (B, E) int32}``: the counts carry the
+streaming-capacity state, so decode drops exactly the slots the full
+forward drops.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
+
+import torch
 
 from .common import ModelConfig
 from .layers import (attn_apply, attn_cache_init, attn_decode, attn_init,
                      attn_prefill, mlp_apply, mlp_init, rmsnorm_apply,
                      rmsnorm_init)
+from .moe import (moe_apply, moe_apply_a2a_block, moe_apply_eshard,
+                  moe_decode, moe_init, moe_prefill)
 
 __all__ = ["BLOCK_KINDS", "block_init", "block_apply", "block_cache_init",
            "block_decode", "block_prefill"]
 
-BLOCK_KINDS = ("attn", "local")
-_LATER = ("attn_moe", "local_moe", "mla", "mla_moe", "mla_local",
-          "mla_local_moe", "rec", "mamba")
+# kind → (mixer, windowed, ffn), the reference's table for what is ported
+_TABLE = {"attn": ("gqa", False, "dense"), "local": ("gqa", True, "dense"),
+          "attn_moe": ("gqa", False, "moe"),
+          "local_moe": ("gqa", True, "moe")}
+BLOCK_KINDS = tuple(_TABLE)
+_LATER = {"mla": "MLA (mla.py)", "mla_moe": "MLA (mla.py)",
+          "mla_local": "MLA (mla.py)", "mla_local_moe": "MLA (mla.py)",
+          "rec": "RG-LRU (rglru.py)", "mamba": "Mamba-2 (ssm.py)"}
+_MOE_IMPLS = ("scatter", "eshard", "a2a")
 
 
-def _window(kind: str, cfg: ModelConfig) -> int:
-    if kind in BLOCK_KINDS:
-        return cfg.sliding_window if kind == "local" else 0
+def _parse(kind: str) -> Tuple[str, bool, str]:
+    if kind in _TABLE:
+        return _TABLE[kind]
     if kind in _LATER:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md A8: the "
-            f"other block kinds)")
+            f"block kind {kind!r} is not ported yet (ROADMAP.md A8: "
+            f"{_LATER[kind]})")
     raise ValueError(f"unknown block kind {kind!r}")
 
 
+def _window(cfg: ModelConfig, windowed: bool) -> int:
+    return cfg.sliding_window if windowed else 0
+
+
 def block_init(kind: str, cfg: ModelConfig, generator, device):
-    _window(kind, cfg)
+    _, _, ffn = _parse(kind)
     p: Dict[str, Any] = {"norm_mix": rmsnorm_init(cfg, device)}
     p["mixer"] = attn_init(cfg, generator, device)
     p["norm_ffn"] = rmsnorm_init(cfg, device)
-    p["ffn"] = mlp_init(cfg, generator, device)
+    p["ffn"] = (moe_init(cfg, generator, device) if ffn == "moe"
+                else mlp_init(cfg, generator, device))
     return p
 
 
-def _ffn(params, x, cfg: ModelConfig):
-    h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
-    return x + mlp_apply(params["ffn"], h, cfg)
-
-
-def block_apply(kind: str, params, x, cfg: ModelConfig):
-    w = _window(kind, cfg)
+def block_apply(kind: str, params, x, cfg: ModelConfig, mesh=None):
+    """x → (x, aux, wire).  ``mesh`` is the a2a MoE's mesh (default:
+    ``models.moe.current_mesh()``)."""
+    _, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    x = x + attn_apply(params["mixer"], h, cfg, window=w)
-    return _ffn(params, x, cfg)
+    x = x + attn_apply(params["mixer"], h, cfg, window=_window(cfg, windowed))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    wire = torch.zeros((), dtype=torch.float64, device=x.device)
+    h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
+    if ffn == "moe":
+        if cfg.moe_impl not in _MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; "
+                             f"one of {_MOE_IMPLS}")
+        if cfg.moe_impl == "a2a":
+            h, aux, wire = moe_apply_a2a_block(params["ffn"], h, cfg, mesh)
+        elif cfg.moe_impl == "eshard":
+            h, aux = moe_apply_eshard(params["ffn"], h, cfg)
+        else:
+            h, aux = moe_apply(params["ffn"], h, cfg)
+    else:
+        h = mlp_apply(params["ffn"], h, cfg)
+    return x + h, aux, wire
 
 
 def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      device, dtype=None):
-    return attn_cache_init(cfg, batch, cache_len, device,
-                           window=_window(kind, cfg), dtype=dtype)
+    _, windowed, ffn = _parse(kind)
+    cache = attn_cache_init(cfg, batch, cache_len, device,
+                            window=_window(cfg, windowed), dtype=dtype)
+    if ffn == "moe":
+        return {"mixer": cache,
+                "moe_counts": torch.zeros((batch, cfg.n_experts),
+                                          dtype=torch.int32, device=device)}
+    return cache
 
 
 def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):
-    """One token through the block; the cache is updated in place."""
-    w = _window(kind, cfg)
+    """One token through the block; the cache (the KV slots and an MoE
+    block's counts) is updated in place."""
+    _, windowed, ffn = _parse(kind)
+    mixer_cache = cache["mixer"] if ffn == "moe" else cache
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    h, cache = attn_decode(params["mixer"], h, cache, pos, cfg, window=w)
-    return _ffn(params, x + h, cfg), cache
+    h, _ = attn_decode(params["mixer"], h, mixer_cache, pos, cfg,
+                       window=_window(cfg, windowed))
+    x = x + h
+    h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
+    if ffn == "moe":
+        h, _ = moe_decode(params["ffn"], h, cache["moe_counts"], pos, cfg)
+    else:
+        h = mlp_apply(params["ffn"], h, cfg)
+    return x + h, cache
 
 
 def block_prefill(kind: str, params, x, cfg: ModelConfig, cache_len: int):
     """Full-sequence forward that also materializes the block's cache."""
-    w = _window(kind, cfg)
+    _, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    h, cache = attn_prefill(params["mixer"], h, cfg, cache_len, window=w)
-    return _ffn(params, x + h, cfg), cache
+    h, cache = attn_prefill(params["mixer"], h, cfg, cache_len,
+                            window=_window(cfg, windowed))
+    x = x + h
+    h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
+    if ffn == "moe":
+        h, _, counts = moe_prefill(params["ffn"], h, cfg)
+        return x + h, {"mixer": cache, "moe_counts": counts}
+    return x + mlp_apply(params["ffn"], h, cfg), cache

@@ -1,5 +1,6 @@
 """Model configuration and parameter helpers (port of
-``repro.models.common``, the fields dense attention models read).
+``repro.models.common``, the fields the ported block kinds read: dense
+attention and MoE).
 
 A config's layer stack is a tuple of ``BlockGroup``s — (pattern of block
 kinds, repeat count).  Parameters keep the reference's layout: every
@@ -32,7 +33,8 @@ class BlockGroup:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense (the kinds ported so far)
+    arch_type: str                 # dense | moe (ported); ssm | hybrid |
+                                   # audio | vlm wait for their kinds
     d_model: int
     vocab_size: int
     blocks: Tuple[BlockGroup, ...]
@@ -46,6 +48,21 @@ class ModelConfig:
     causal: bool = True
     d_ff: int = 0
     ffn_activation: str = "silu"   # silu (gated) | gelu (gated, tanh form)
+    # ---- moe ----
+    n_experts: int = 0
+    experts_per_token: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    # "scatter": every expert over per-sequence capacity buffers on one
+    #   device (``models.moe.moe_apply``).
+    # "a2a": expert-parallel dispatch over the compressed ring all_to_all
+    #   (``models.moe.moe_apply_a2a_block``) — the scatter path's numbers,
+    #   the dispatch wire coded and measured a round; needs a mesh with a
+    #   "model" axis (``models.moe.use_mesh``), "scatter" without one.
+    # "eshard": the reference's expert-sharded psum path, not ported yet.
+    moe_impl: str = "scatter"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
@@ -73,7 +90,7 @@ class ModelConfig:
     def reduced(self, **overrides) -> "ModelConfig":
         """The ≤2-layer, d_model≤256 smoke variant of the same family,
         with the reference's cuts (``repro.models.common.ModelConfig
-        .reduced``) of the fields a dense attention model has."""
+        .reduced``) of the fields the ported kinds have."""
         short = []
         for g in self.blocks:
             if sum(b.n_layers for b in short) >= 2:
@@ -92,6 +109,10 @@ class ModelConfig:
             head_dim=32 if self.head_dim else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_token=min(self.experts_per_token, 2)
+            if self.experts_per_token else 0,
+            moe_d_ff=min(self.moe_d_ff, 256) if self.moe_d_ff else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
             remat="none",

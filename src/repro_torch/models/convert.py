@@ -32,8 +32,10 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def from_jax_params(np_tree, cfg: ModelConfig, device=None):
     """The reference's ``model_init`` tree (NumPy leaves) as the port's
-    parameters on ``device`` (CUDA unless named).  Checks the embedding
-    and first group's depth against ``cfg``."""
+    parameters on ``device`` (CUDA unless named), MoE leaves (the float32
+    router, the stacked experts, the shared expert) included.  Checks the
+    embedding, the groups and each MoE block's expert count against
+    ``cfg``."""
     dev = resolve_device(device)
     params = tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
     table = params["embed"]["table"]
@@ -43,4 +45,11 @@ def from_jax_params(np_tree, cfg: ModelConfig, device=None):
     if len(params["groups"]) != len(cfg.blocks):
         raise ValueError(f"{len(params['groups'])} groups for "
                          f"{len(cfg.blocks)} block groups")
+    for bg, subs in zip(cfg.blocks, params["groups"]):
+        for kind, sub in zip(bg.pattern, subs):
+            if "moe" in kind:
+                e = sub["ffn"]["router"].shape[-1]
+                if e != cfg.n_experts:
+                    raise ValueError(f"{kind} block routes to {e} experts, "
+                                     f"config has {cfg.n_experts}")
     return params

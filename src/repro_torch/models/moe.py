@@ -1,0 +1,581 @@
+"""Mixture-of-Experts FFN (port of ``repro.models.moe``): top-k routing,
+streaming-capacity dispatch, shared experts, and the expert-parallel
+path whose dispatch and combine ride the compressed ring all-to-all.
+
+Capacity is streaming (causal), as in the reference: token ``t`` of a
+sequence is dropped from expert ``e`` iff the assignments to ``e`` from
+tokens ``≤ t`` of the same sequence exceed ``moe_stream_capacity(t+1)``,
+so ``moe_decode`` (which carries a per-(sequence, expert) count in its
+cache) drops exactly the slots the full forward drops.
+
+Layout: each sequence's kept slots fill an ``(E, C, d)`` buffer; the
+experts run over every sequence's buffer at once, one product per
+expert with ``Z·C`` rows (``_experts``).  The expert-parallel path
+(``moe_apply_a2a``) gives each expert the same ``Z·C`` rows in the same
+order, through the same call, so its result is the scatter path's bit
+for bit.  Dispatch and combine are gathers (a dropped slot reads a zero
+row), and the k slots of a token add in slot order, never by atomics.
+
+The router runs in float32 with the Switch load-balance loss.  The
+compressed wire's codec is process-global configuration
+(``configure_a2a_wire``), folded into the lifecycle's epoch fingerprint
+(``a2a_wire_fingerprint``).  ``moe_impl="eshard"`` (the reference's
+expert-sharded psum path) is not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import hashlib
+import math
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .common import ModelConfig, truncated_normal_init
+from .layers import mlp_apply, mlp_init
+
+__all__ = ["moe_init", "moe_apply", "moe_prefill", "moe_decode",
+           "moe_apply_a2a", "moe_apply_a2a_block", "moe_apply_eshard",
+           "configure_a2a_wire", "a2a_wire_fingerprint", "use_mesh",
+           "current_mesh", "moe_capacity", "moe_stream_capacity",
+           "moe_stream_capacity_host"]
+
+
+# ------------------------------------------------------------- capacity
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    cap = math.ceil(n_tokens * cfg.experts_per_token / cfg.n_experts
+                    * cfg.capacity_factor)
+    return max(4, -(-cap // 4) * 4)          # round up to a multiple of 4
+
+
+def moe_stream_capacity(n_tokens, cfg: ModelConfig) -> torch.Tensor:
+    """Causal capacity threshold after the first ``n_tokens`` tokens, as
+    int32 (``n_tokens`` an int or a tensor; the result lies on its
+    device).  The float32 op order is ``moe_stream_capacity_host``'s, so
+    both give the reference's integers."""
+    t = torch.as_tensor(n_tokens).to(torch.float32)
+    f = torch.tensor(cfg.experts_per_token / cfg.n_experts,
+                     dtype=torch.float32, device=t.device)
+    cf = torch.tensor(cfg.capacity_factor, dtype=torch.float32,
+                      device=t.device)
+    c = torch.ceil(t * f * cf).to(torch.int32)
+    return torch.clamp(((c + 3) // 4) * 4, min=4)
+
+
+def moe_stream_capacity_host(n_tokens: int, cfg: ModelConfig) -> int:
+    """Host mirror of ``moe_stream_capacity`` (static buffer sizing)."""
+    t = np.float32(n_tokens)
+    c = int(np.ceil(t * np.float32(cfg.experts_per_token / cfg.n_experts)
+                    * np.float32(cfg.capacity_factor)))
+    return max(4, ((c + 3) // 4) * 4)
+
+
+# ----------------------------------------------------------------- init
+def moe_init(cfg: ModelConfig, generator, device):
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+
+    def w(shape, dtype, scale):
+        return truncated_normal_init(shape, dtype, scale, generator, device)
+
+    p = {"router": w((d, e), torch.float32, d ** -0.5),
+         "w_gate": w((e, d, ff), cfg.dtype, d ** -0.5),
+         "w_up": w((e, d, ff), cfg.dtype, d ** -0.5),
+         "w_down": w((e, ff, d), cfg.dtype, ff ** -0.5)}
+    if cfg.n_shared_experts > 0:
+        p["shared"] = mlp_init(cfg, generator, device,
+                               d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
+# -------------------------------------------------------------- routing
+def _route_probs(params, xf, cfg: ModelConfig):
+    """Router in float32: (N, d) → (topw, topi, probs)."""
+    logits = xf.to(torch.float32) @ params["router"]            # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, cfg.experts_per_token, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    return topw, topi, probs
+
+
+def _aux(topi, probs, cfg: ModelConfig):
+    """Switch load-balance loss of each row group: topi (..., N, k),
+    probs (..., N, E) → (...) float32.  ``frac_routed`` adds 1/(N·k) once
+    a slot, as the reference's scatter-add does (equal addends: the
+    order does not change the sum)."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    n = topi.shape[-2]
+    lead = topi.shape[:-2]
+    idx = topi.reshape(-1, n * k)
+    one = torch.full(idx.shape, 1.0 / (n * k), dtype=torch.float32,
+                     device=idx.device)
+    frac = torch.zeros((idx.shape[0], e), dtype=torch.float32,
+                       device=idx.device).scatter_add_(1, idx, one)
+    mean = probs.reshape(-1, n, e).mean(1)
+    aux = torch.sum(frac * mean, dim=-1) * (cfg.router_aux_weight * e)
+    return aux.reshape(lead)
+
+
+def _route(params, xf, cfg: ModelConfig):
+    """(N, d) → (topw, topi, aux_loss), the reference's ``_route``."""
+    topw, topi, probs = _route_probs(params, xf, cfg)
+    return topw, topi, _aux(topi, probs, cfg)
+
+
+# ------------------------------------------------------ dispatch/combine
+def _slot_thresholds(s: int, cfg: ModelConfig, device) -> torch.Tensor:
+    """The causal capacity of each routing slot of an S-token sequence."""
+    thr = moe_stream_capacity(torch.arange(1, s + 1, device=device), cfg)
+    return thr.repeat_interleave(cfg.experts_per_token)
+
+
+def _dispatch(x, topi, cfg: ModelConfig, cap: int):
+    """Every sequence's streaming-capacity dispatch.
+
+    x (Z, S, d), topi (Z, S, k) → (buf (Z, E, C, d), slot (Z, S·k)
+    int64, counts (Z, E) int32).  ``slot`` is each routing slot's row in
+    the flattened buffer, or ``Z·E·C`` (a zero row) when the slot is
+    dropped; ``counts`` are the routed totals (kept and dropped), the
+    state ``moe_decode`` continues from.  The buffer is a gather: a
+    slot row is read by at most one buffer row, so the backward adds no
+    two values into one place.
+    """
+    z, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    dev = x.device
+    flat_e = topi.reshape(z, s * k)
+    onehot = F.one_hot(flat_e, e).to(torch.int32)               # (Z, S·k, E)
+    pos = torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
+    keep = pos < _slot_thresholds(s, cfg, dev)
+    base = torch.arange(z, device=dev)[:, None] * (e * cap)
+    dump = z * e * cap
+    slot = torch.where(keep, base + flat_e * cap + pos, dump)
+    rows = x[:, :, None, :].expand(z, s, k, d).reshape(z * s * k, d)
+    rows = torch.cat([rows, rows.new_zeros((1, d))])
+    src = torch.full((dump + 1,), z * s * k, dtype=torch.int64, device=dev)
+    src.scatter_(0, slot.reshape(-1),
+                 torch.arange(z * s * k, device=dev))   # dump row: unread
+    buf = rows.index_select(0, src[:dump]).reshape(z, e, cap, d)
+    return buf, slot, onehot.sum(1, dtype=torch.int32)
+
+
+def _combine(out_buf, slot, topw, s: int):
+    """Inverse of ``_dispatch``: out_buf (Z, E, C, d), slot (Z, S·k),
+    topw (Z, S, k) → (Z, S, d); a dropped slot adds zero, and a token's
+    k slots add in slot order from zero (the reference's scatter-add)."""
+    z, e, cap, d = out_buf.shape
+    k = topw.shape[-1]
+    rows = torch.cat([out_buf.reshape(z * e * cap, d),
+                      out_buf.new_zeros((1, d))])
+    yd = rows.index_select(0, slot.reshape(-1)).reshape(z, s, k, d)
+    yd = yd * topw[..., None].to(out_buf.dtype)
+    y = out_buf.new_zeros((z, s, d))
+    for j in range(k):
+        y = y + yd[:, :, j]
+    return y
+
+
+def _act(cfg: ModelConfig):
+    # jax.nn.gelu defaults to the tanh approximation
+    if cfg.ffn_activation == "silu":
+        return F.silu
+    return lambda v: F.gelu(v, approximate="tanh")
+
+
+def _expert_weights(params):
+    """(w_gate, w_up, w_down) of each expert: ``unbind`` views, so the
+    backward stacks each weight's gradient once."""
+    return list(zip(params["w_gate"].unbind(0), params["w_up"].unbind(0),
+                    params["w_down"].unbind(0)))
+
+
+def _experts(buf, weights, cfg: ModelConfig):
+    """buf (Z, E', C, d) with ``weights`` the E' experts' (w_gate, w_up,
+    w_down) → (Z, E', C, d): one gated-MLP product per expert over its
+    Z·C rows.  Both MoE paths call this with the same rows per expert,
+    so their products are the same calls."""
+    z, _, c, d = buf.shape
+    act = _act(cfg)
+    outs = []
+    for xj, (wg, wu, wd) in zip(buf.unbind(1), weights):
+        xe = xj.reshape(z * c, d)
+        h = act(xe @ wg) * (xe @ wu)
+        outs.append((h @ wd).reshape(z, c, d))
+    return torch.stack(outs, dim=1)
+
+
+def _moe_forward(params, x, cfg: ModelConfig):
+    """x (B, S, d) → (y (B, S, d), aux, counts (B, E) int32)."""
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    cap = moe_stream_capacity_host(s, cfg)
+    xf = x.reshape(b * s, d)
+    topw, topi, aux = _route(params, xf, cfg)
+    buf, slot, counts = _dispatch(x, topi.reshape(b, s, k), cfg, cap)
+    out_buf = _experts(buf, _expert_weights(params), cfg)
+    y = _combine(out_buf, slot, topw.reshape(b, s, k), s).reshape(b * s, d)
+    if cfg.n_shared_experts > 0:
+        y = y + mlp_apply(params["shared"], xf, cfg)
+    return y.reshape(b, s, d), aux, counts
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """x: (B, S, d) → (y, aux_loss).  Routed top-k + optional shared
+    expert."""
+    y, aux, _ = _moe_forward(params, x, cfg)
+    return y, aux
+
+
+def moe_prefill(params, x, cfg: ModelConfig):
+    """Full-sequence MoE that also returns the decode count cache:
+    (y, aux, counts (B, E) int32)."""
+    return _moe_forward(params, x, cfg)
+
+
+def moe_decode(params, x, counts, pos: int, cfg: ModelConfig):
+    """One-token MoE step reproducing the forward's streaming capacity.
+
+    x (B, 1, d); counts (B, E) int32, the routed totals of tokens < pos,
+    **updated in place** (kept and dropped slots both count); ``pos`` the
+    token's absolute position, on the host.  A slot is dropped iff its
+    expert's count has reached ``moe_stream_capacity_host(pos + 1)``,
+    the forward's decision for token ``pos``.  Returns (y (B, 1, d),
+    counts).
+    """
+    b, _, d = x.shape
+    e = cfg.n_experts
+    xf = x.reshape(b, d)
+    topw, topi, _ = _route_probs(params, xf, cfg)               # (B, k)
+    thr = moe_stream_capacity_host(pos + 1, cfg)
+    keep = counts.gather(1, topi) < thr                          # (B, k)
+    bi = torch.arange(b, device=x.device)[:, None].expand_as(topi)
+    counts.index_put_((bi, topi), torch.ones_like(topi, dtype=counts.dtype),
+                      accumulate=True)
+
+    onehot = F.one_hot(topi, e).to(torch.float32)               # (B, k, E)
+    sel = (onehot * keep[..., None].to(torch.float32)).to(xf.dtype)
+    buf = torch.einsum("bke,bd->bed", sel, xf)                  # (B, E, d)
+    out = _experts(buf[:, :, None], _expert_weights(params), cfg)[:, :, 0]
+    we = torch.einsum("bke,bk->be", onehot, topw)               # (B, E) f32
+    y = torch.einsum("bed,be->bd", out, we.to(xf.dtype))
+    if cfg.n_shared_experts > 0:
+        y = y + mlp_apply(params["shared"], xf, cfg)
+    return y.reshape(b, 1, d), counts
+
+
+# ------------------------------------------------------------ a2a wire
+class _A2AWire(torch.autograd.Function):
+    """``ring_all_to_all`` with an exact straight-through backward.
+
+    The coded wire is value for value the plain all-to-all permutation,
+    so its transpose is that permutation of the cotangent (the
+    reference's custom VJP).  The ring's stats are written, detached,
+    into ``out_stats``: a measurement, not a function to differentiate.
+    """
+
+    @staticmethod
+    def forward(ctx, send, axis, books, scheme_name, chunk, backend,
+                out_stats):
+        from ..comm.ring import ring_all_to_all
+        ctx.axis = axis
+        recv, stats = ring_all_to_all(send, axis, books, scheme_name,
+                                      chunk=chunk, decode_backend=backend)
+        out_stats.update({k: v.detach() for k, v in stats.items()})
+        return recv
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_plain_all_to_all(ct, ctx.axis), None, None, None, None,
+                None, None)
+
+
+def _plain_all_to_all(x, axis):
+    """The uncoded all-to-all on the coded ring's schedule: round t
+    sends each rank's shard ``(i + t) % n`` through the rotation by t
+    (``Axis.ppermute``: point-to-point, which moves bf16 on any
+    backend)."""
+    from ..comm.axis import put_rows, take_rows
+    n, nl = axis.size, len(axis.batch)
+    i = axis.index(x.device)
+    out = put_rows(torch.zeros_like(x), i, take_rows(x, i, nl), nl)
+    for t in range(1, n):
+        got = axis.ppermute(take_rows(x, (i + t) % n, nl).contiguous(), t)
+        out = put_rows(out, (i - t) % n, got, nl)
+    return out
+
+
+def _a2a_wire(send, axis, books, scheme_name: str, chunk: int,
+              decode_backend: str):
+    stats: Dict[str, torch.Tensor] = {}
+    recv = _A2AWire.apply(send, axis, books, scheme_name, chunk,
+                          decode_backend, stats)
+    return recv, stats
+
+
+def moe_apply_a2a(params, x, cfg: ModelConfig, axis, books, *,
+                  scheme_name: str = "bf16", chunk: int = 2048,
+                  decode_backend: str = "multisym"):
+    """Expert-parallel MoE whose dispatch and combine ride the compressed
+    ring all-to-all over ``axis`` (a ``comm.axis.Axis`` of size tp, with
+    ``cfg.n_experts % tp == 0``); rank r owns experts ``[r·E/tp,
+    (r+1)·E/tp)``.
+
+    ``x`` is each rank's ``(B_local, S, d)`` token slab behind the
+    axis's rank dims (``axis.batch``; none on a ``ProcessGroupAxis``),
+    ``params`` the full MoE params.  Route and dispatch locally → ring
+    all-to-all of the ``(E, C, d)`` buffers grouped by owning rank
+    (coded) → each rank's experts over every rank's buffers → ring
+    all-to-all back (coded) → combine locally.
+
+    The wire is lossless, each expert gets the rows the scatter path
+    gives it through the same call, and on a ``LoopbackAxis`` the
+    per-token ops (router, shared expert) run over all ranks' rows at
+    once, as ``moe_apply`` runs them over the global batch: so on one
+    device the result is ``moe_apply``'s on the global batch bit for
+    bit.  The aux loss is the mean of the per-rank Switch losses.
+
+    Returns ``(y, aux, stats)``: the two all-to-alls' ledgers merged
+    (``hop_coded_bits`` dispatch then combine, the other keys summed).
+    Differentiable: the wire's backward is the plain permutation.
+    """
+    tp = axis.size
+    e = cfg.n_experts
+    if e % tp != 0:
+        raise ValueError(f"n_experts={e} not divisible by axis "
+                         f"{axis.name!r} size {tp}")
+    e_local = e // tp
+    lead = tuple(axis.batch)
+    nl = len(lead)
+    r = math.prod(lead)
+    b, s, d = x.shape[nl:]
+    k = cfg.experts_per_token
+    cap = moe_stream_capacity_host(s, cfg)
+    xf = x.reshape(r * b * s, d)
+
+    topw, topi, probs = _route_probs(params, xf, cfg)
+    aux_local = _aux(topi.reshape(*lead, b * s, k),
+                     probs.reshape(*lead, b * s, e), cfg)
+    aux = axis.psum(aux_local) / tp
+    buf, slot, _ = _dispatch(x.reshape(r * b, s, d),
+                             topi.reshape(r * b, s, k), cfg, cap)
+
+    # ---- dispatch wire: buffers grouped by the rank owning the expert
+    send = buf.reshape(*lead, b, tp, e_local, cap, d).movedim(nl + 1, nl)
+    recv, s_disp = _a2a_wire(send, axis, books, scheme_name, chunk,
+                             decode_backend)
+    hbuf = recv.reshape(r, tp * b, e_local, cap, d)  # every rank's tokens
+
+    # ---- each rank's experts over every rank's buffers
+    weights = _expert_weights(params)
+    owners = axis.index(torch.device("cpu")).reshape(-1).tolist()
+    out_loc = torch.stack([
+        _experts(hb, weights[o * e_local:(o + 1) * e_local], cfg)
+        for hb, o in zip(hbuf.unbind(0), owners)])
+
+    # ---- combine wire: expert outputs return to their source ranks
+    back, s_comb = _a2a_wire(out_loc.reshape(*lead, tp, b, e_local, cap, d),
+                             axis, books, scheme_name, chunk, decode_backend)
+    out_buf = back.movedim(nl, nl + 1).reshape(r * b, e, cap, d)
+    y = _combine(out_buf, slot, topw.reshape(r * b, s, k), s)
+    y = y.reshape(r * b * s, d)
+    if cfg.n_shared_experts > 0:
+        y = y + mlp_apply(params["shared"], xf, cfg)
+
+    stats = {key: (torch.cat([s_disp[key], s_comb[key]], dim=-1)
+                   if key == "hop_coded_bits" else s_disp[key] + s_comb[key])
+             for key in s_disp}
+    return y.reshape(x.shape), aux, stats
+
+
+# ------------------------------------------------------------------ a2a
+# Block-stack wiring for the compressed dispatch (``moe_impl="a2a"``).
+# The wire codec is process-global configuration, not model state:
+# fixed books come from earlier data (paper §4) and every replica must
+# hold the same ones.  At bootstrap a deterministic activation-shaped
+# sample stands in; deployments install real books (for example a
+# lifecycle manager's) through ``configure_a2a_wire``.
+_A2A_WIRE = {"books": None, "scheme_name": "bf16", "chunk": 512,
+             "decode_backend": "auto"}
+_A2A_DEFAULT_BOOKS: Dict[str, dict] = {}
+
+
+def configure_a2a_wire(books=None, scheme_name: Optional[str] = None,
+                       chunk: Optional[int] = None,
+                       decode_backend: Optional[str] = None, *,
+                       spec=None) -> None:
+    """Set the codec the ``moe_impl="a2a"`` block path encodes with.
+
+    Any argument left ``None`` keeps its current value; ``books`` maps
+    plane → book for the configured scheme.  Or pass a bitexact
+    ``CompressionSpec`` as ``spec``: the books are rebuilt from its
+    per-plane canonical lengths through its codec (what every decoding
+    peer holds), and scheme, chunk and decode backend follow it.
+
+    The state is process-global, so ``a2a_wire_fingerprint`` folds it
+    into the lifecycle's epoch fingerprint (``lifecycle.sync``): a
+    half-configured fleet fails ``verify_epoch_agreement``.
+    """
+    if spec is not None:
+        if books is not None:
+            raise ValueError("pass either books or spec, not both")
+        if spec.plane_lengths is None:
+            raise ValueError("configure_a2a_wire(spec=...) needs a spec "
+                             "with plane_lengths (mode != off)")
+        from ..core.codec import get_codec
+        codec = get_codec(spec.codec)
+        books = {
+            plane: codec.book_from_lengths(
+                np.asarray(lens, np.int32),
+                key=(spec.tensor_kind, spec.scheme_name, plane))
+            for plane, lens in spec.plane_lengths}
+        scheme_name = spec.scheme_name
+        chunk = spec.chunk
+        decode_backend = spec.decode_backend
+    if books is not None:
+        _A2A_WIRE["books"] = dict(books)
+    if scheme_name is not None:
+        _A2A_WIRE["scheme_name"] = scheme_name
+    if chunk is not None:
+        _A2A_WIRE["chunk"] = int(chunk)
+    if decode_backend is not None:
+        _A2A_WIRE["decode_backend"] = decode_backend
+
+
+def a2a_wire_fingerprint() -> str:
+    """Deterministic digest of the process-global a2a wire config (the
+    reference's string, letter for letter): a constant while no books
+    are configured, else a sha256 over the wire knobs and each plane's
+    codec and code lengths."""
+    if _A2A_WIRE["books"] is None:
+        return "a2a:unconfigured"
+    h = hashlib.sha256()
+    h.update(f"{_A2A_WIRE['scheme_name']}|{_A2A_WIRE['chunk']}|"
+             f"{_A2A_WIRE['decode_backend']}".encode())
+    for plane in sorted(_A2A_WIRE["books"]):
+        b = _A2A_WIRE["books"][plane]
+        h.update(plane.encode() + b"\x1e")
+        h.update(getattr(b, "codec_name", "huffman").encode() + b"\x1e")
+        h.update(np.ascontiguousarray(b.lengths, np.int32).tobytes())
+    return "a2a:" + h.hexdigest()
+
+
+def bootstrap_sample() -> torch.Tensor:
+    """The bootstrap books' sample: 65 536 N(0, 1) draws of
+    ``numpy.random.default_rng(0)`` rounded to bf16 through float32, the
+    reference's bits (its ``astype(bfloat16)`` rounds through float32)."""
+    draws = np.random.default_rng(0).normal(0.0, 1.0, 1 << 16)
+    return torch.from_numpy(draws).to(torch.float32).to(torch.bfloat16)
+
+
+def _a2a_wire_books(scheme_name: str):
+    if _A2A_WIRE["books"] is not None:
+        return _A2A_WIRE["books"]
+    if scheme_name not in _A2A_DEFAULT_BOOKS:
+        from ..core.codebook import build_codebook
+        from ..core.symbols import SCHEMES
+        planes = SCHEMES[scheme_name].to_symbols(bootstrap_sample())
+        _A2A_DEFAULT_BOOKS[scheme_name] = {
+            p: build_codebook(np.bincount(s.numpy(), minlength=256),
+                              key=("moe_dispatch", scheme_name, p))
+            for p, s in planes.items()}
+    return _A2A_DEFAULT_BOOKS[scheme_name]
+
+
+# ------------------------------------------------------------- the mesh
+_MESH: contextvars.ContextVar = contextvars.ContextVar("moe_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mapping[str, object]]):
+    """What the reference's ``with mesh:`` is: the mesh the block stack
+    sees, a mapping of axis names to ``comm.axis`` axes (for example
+    ``comm.loopback_mesh({"data": 2, "model": 2})``).  The previous mesh
+    comes back on exit."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> Optional[Mapping[str, object]]:
+    """The mesh of the innermost ``use_mesh``, or None."""
+    return _MESH.get()
+
+
+def _split_batch(x, mesh, batch_axes):
+    """(B, ...) → the loopback mesh's rank dims + (B / ranks, ...): the
+    batch split over ``batch_axes`` in that order, the last minor (the
+    reference's ``P(batch_axes)``), laid out in the mesh's dim order."""
+    sizes = [mesh[a].size for a in batch_axes]
+    dims = [mesh[a].dim for a in batch_axes]
+    nb = x.shape[0] // math.prod(sizes)
+    split = x.reshape(*sizes, nb, *x.shape[1:])
+    order = sorted(range(len(dims)), key=lambda i: dims[i])
+    return split.permute(*order, *range(len(dims), split.dim())), order
+
+
+def _join_batch(y, order):
+    inv = [order.index(i) for i in range(len(order))]
+    joined = y.permute(*inv, *range(len(order), y.dim()))
+    return joined.reshape(-1, *y.shape[len(order) + 1:])
+
+
+def moe_apply_a2a_block(params, x, cfg: ModelConfig, mesh=None):
+    """``moe_impl="a2a"``: the compressed-dispatch MoE inside the block
+    stack.
+
+    ``mesh`` (default: ``current_mesh()``) must hold a ``"model"`` axis
+    whose size divides ``n_experts`` and, with the other axes, the
+    global batch; tokens split over every axis (``"model"`` minor),
+    experts over ``"model"``.  Anything else falls back to the scatter
+    path: the same numbers, no wire.  The axes are loopback axes on one
+    stack of ranks (``comm.loopback_mesh``): the block splits the global
+    batch over the ranks and joins it back.
+
+    Returns ``(y, aux, wire_coded_bits)``: the measured global coded
+    bits of this layer's dispatch and combine (float64), which
+    ``forward_train`` sums into ``moe_wire_coded_bits``.
+    """
+    from ..comm.axis import LoopbackAxis
+
+    mesh = current_mesh() if mesh is None else mesh
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    if not mesh or "model" not in mesh:
+        y, aux = moe_apply(params, x, cfg)
+        return y, aux, zero
+    tp = mesh["model"].size
+    data_axes = tuple(a for a in mesh if a != "model")
+    dp = math.prod(mesh[a].size for a in data_axes)
+    if tp == 1 or cfg.n_experts % tp != 0 or x.shape[0] % (dp * tp) != 0:
+        y, aux = moe_apply(params, x, cfg)
+        return y, aux, zero
+    if not all(isinstance(a, LoopbackAxis) for a in mesh.values()):
+        raise NotImplementedError(
+            "moe_apply_a2a_block splits the batch over a loopback mesh; "
+            "call moe_apply_a2a with a process-group axis directly")
+
+    wire = _A2A_WIRE
+    books = _a2a_wire_books(wire["scheme_name"])
+    xs, order = _split_batch(x, mesh, data_axes + ("model",))
+    y, aux, stats = moe_apply_a2a(
+        params, xs, cfg, mesh["model"], books,
+        scheme_name=wire["scheme_name"], chunk=wire["chunk"],
+        decode_backend=wire["decode_backend"])
+    # stats are global/n on every rank: the psum over the a2a axis is one
+    # data group's total; data groups ran their own a2as, so they add
+    coded = mesh["model"].psum(stats["coded_wire_bits"])
+    for a in data_axes:
+        aux = mesh[a].psum(aux) / mesh[a].size
+        coded = mesh[a].psum(coded)
+    first = (0,) * len(order)
+    return _join_batch(y, order), aux[first], coded[first]
+
+
+def moe_apply_eshard(params, x, cfg: ModelConfig):
+    raise NotImplementedError(
+        "moe_impl='eshard' (the expert-sharded psum path) is not ported "
+        "yet (ROADMAP.md A8: moe_apply_eshard)")

@@ -5,8 +5,8 @@ full-sequence forward (with autograd and per-block remat for training:
 Parameters and caches keep the reference's tree: ``{"embed",
 "groups", "final_norm"}`` with one tuple of stacked sub-block trees per
 ``BlockGroup`` (leading ``(repeats,)`` axis); the layers run as a Python
-loop over that axis.  Caches stack the same way, and ``decode_step``
-updates them in place.
+loop over that axis.  Caches stack the same way (an MoE block's with
+its routing counts), and ``decode_step`` updates them in place.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from .common import (ModelConfig, tree_index, tree_leaves, tree_map,
                      tree_stack, tree_unflatten)
 from .layers import (embed_apply, embed_init, rmsnorm_apply, rmsnorm_init,
                      unembed_apply)
+from .moe import current_mesh
 
 __all__ = ["model_init", "forward", "forward_train", "init_caches",
            "prefill", "decode_step", "param_count"]
@@ -67,8 +68,9 @@ def _tokens(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Full-sequence forward: tokens (B, S) → logits (B, S, vocab)."""
     x = embed_apply(params["embed"], _tokens(batch), cfg)
+    mesh = current_mesh()
     for _, _, _, kind, p in _layers(cfg, params):
-        x = block_apply(kind, p, x, cfg)
+        x, _, _ = block_apply(kind, p, x, cfg, mesh)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return unembed_apply(params["embed"], x, cfg)
 
@@ -82,11 +84,15 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     Each layer's parameters are ``unbind`` views of its group's stacked
     leaves, so the backward writes each stacked gradient once (one
     ``stack``), not once a layer.  ``cfg.remat`` "block" (and
-    "save_mixer_ffn", the same here: a block holds no collective)
+    "save_mixer_ffn", the same here: a block's only collective, the a2a
+    MoE wire, is lossless, so its re-run gives the same values)
     recomputes each block in the backward
-    (``torch.utils.checkpoint``).  ``aux`` (the MoE balance loss) and
-    ``with_stats``' ``moe_wire_coded_bits`` are float32 zeros on the
-    dense blocks.
+    (``torch.utils.checkpoint``).  ``aux`` is the layers' summed MoE
+    balance loss (float32); ``with_stats`` appends
+    ``{"moe_wire_coded_bits"}``, the measured coded bits of every
+    layer's compressed MoE dispatch and combine (float64; non-zero only
+    under ``moe_impl="a2a"`` on a mesh).  The mesh is read once, here,
+    so a block's re-run in the backward sees the forward's.
     """
     if "prefix_embeds" in batch:
         raise NotImplementedError(
@@ -95,21 +101,25 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if cfg.remat not in ("none", "block", "save_mixer_ffn"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     x = embed_apply(params["embed"], batch["tokens"], cfg)
+    mesh = current_mesh() or {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    wire = torch.zeros((), dtype=torch.float64, device=x.device)
     for bg, subs in zip(cfg.blocks, params["groups"]):
         layers = [[a.unbind(0) for a in tree_leaves(sub)] for sub in subs]
         for r in range(bg.repeats):
             for si, kind in enumerate(bg.pattern):
                 p = tree_unflatten(subs[si], [u[r] for u in layers[si]])
                 if cfg.remat == "none":
-                    x = block_apply(kind, p, x, cfg)
+                    x, a, w = block_apply(kind, p, x, cfg, mesh)
                 else:
-                    x = checkpoint(block_apply, kind, p, x, cfg,
-                                   use_reentrant=False)
+                    x, a, w = checkpoint(block_apply, kind, p, x, cfg, mesh,
+                                         use_reentrant=False)
+                aux = aux + a
+                wire = wire + w
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = unembed_apply(params["embed"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if with_stats:
-        return logits, aux, {"moe_wire_coded_bits": torch.zeros_like(aux)}
+        return logits, aux, {"moe_wire_coded_bits": wire}
     return logits, aux
 
 

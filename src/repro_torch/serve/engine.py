@@ -21,8 +21,12 @@ observes every step's activation histograms and, every
 ``refresh_every`` tokens, lets the manager rebuild stale books; an epoch
 flip re-binds the spec and swaps in the step built for the new books.
 
-Not ported yet (each raises ``NotImplementedError``): ``ep_degree > 1``
-and prefix embeddings (MoE and VLM, ROADMAP.md A8).
+Expert parallelism: with ``ep_degree > 1`` and an MoE model, each step
+reports ``moe_wire_raw_bits``, the analytic raw bits of its expert
+dispatch and combine on an ``ep_degree``-way all-to-all (the decode's
+experts run on this device; ``models.moe.moe_apply_a2a`` is the coded
+wire itself).  Prefix embeddings (VLM and audio) are not ported yet and
+raise ``NotImplementedError`` (ROADMAP.md A8).
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ import numpy as np
 import torch
 
 from ..comm.compression import CompressionSpec, payload_stats
-from ..comm.transport import decode_blocks, encode_planes, wire_factor
+from ..comm.transport import (decode_blocks, encode_planes, moe_ep_raw_bits,
+                              wire_factor)
 from ..core.codec import get_codec
 from ..core.encoder import DEFAULT_CHUNK, chunk_counts_for, concat_chunks
 from ..device import metrics_to_host, resolve_device
@@ -53,13 +58,6 @@ class ServeConfig:
     max_cache_len: int
     temperature: float = 0.0   # 0 → greedy
     seed: int = 0
-
-
-def _ep_unported(ep_degree: int) -> None:
-    if ep_degree > 1:
-        raise NotImplementedError("ep_degree > 1 (expert-parallel MoE "
-                                  "serving) is not ported yet (ROADMAP.md "
-                                  "A8)")
 
 
 def make_activation_probe(comp_spec: Optional[CompressionSpec], *,
@@ -144,14 +142,20 @@ def make_serve_step(model_cfg: ModelConfig,
                     ep_degree: int = 1):
     """(params, tokens (B,1), caches, pos) → (logits, caches, metrics):
     one decode step, then ``make_activation_probe``'s metrics of its
-    logits."""
-    _ep_unported(ep_degree)
+    logits and, with ``ep_degree > 1``, ``moe_wire_raw_bits``."""
     probe = make_activation_probe(comp_spec, decode_chunk=decode_chunk,
                                   tp_degree=tp_degree)
 
     def step(params, tokens, caches, pos: int):
         logits, caches = decode_step(params, tokens, caches, pos, model_cfg)
-        return logits, caches, probe(logits)
+        metrics = probe(logits)
+        moe = (moe_ep_raw_bits(model_cfg, tokens.shape[0],
+                               comp_spec.scheme.total_symbol_bits(),
+                               ep_degree)[1]
+               if comp_spec is not None and comp_spec.enabled else 0.0)
+        if moe:
+            metrics["moe_wire_raw_bits"] = metrics["moe_wire_raw_bits"] + moe
+        return logits, caches, metrics
 
     return step
 
@@ -186,7 +190,6 @@ class Engine:
         if kv_mode not in ("raw", "coded"):
             raise ValueError(f"kv_mode must be 'raw' or 'coded', "
                              f"got {kv_mode!r}")
-        _ep_unported(ep_degree)
         self.device = resolve_device(device)
         if param_store is not None:
             if params is not None:

@@ -238,8 +238,13 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     and, when ``comp_spec.axes`` names a two-axis ring with
     ``dp_axis_sizes = (n_inner, n_outer)``, the hierarchical volume and
-    its per-axis split (``grad_wire_{inner,outer}_*``).  ``ep_degree > 1``
-    (the MoE dispatch wire) waits for the MoE blocks (ROADMAP.md A8).
+    its per-axis split (``grad_wire_{inner,outer}_*``).  With a spec,
+    ``moe_dispatch_raw_bits`` is the raw bits of the batch's MoE dispatch
+    and combine (every routed slot's hidden state out and back, a MoE
+    layer) and ``moe_wire_raw_bits`` that times the ``ep_degree``-way
+    all-to-all factor (0 without expert parallelism or an MoE layer);
+    ``moe_wire_coded_bits`` is the coded wire's measured ledger from
+    ``forward_train`` (``moe_impl="a2a"`` on a mesh).
     """
     if grad_sync not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown grad_sync {grad_sync!r}; one of "
@@ -254,13 +259,10 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig,
                 "grad_sync='reduce_scatter' accounting is flat-ring only; "
                 "drop dp_axis_sizes (hierarchical ZeRO legs are not "
                 "modeled yet)")
-    if ep_degree > 1:
-        raise NotImplementedError("ep_degree > 1 (the MoE expert-dispatch "
-                                  "wire) is not ported yet (ROADMAP.md A8)")
+    from ..comm.transport import moe_ep_raw_bits, wire_factor
     enabled = comp_spec is not None and comp_spec.enabled
     rs_factor = ag_factor = 0.0
     if enabled and dp_degree > 1:
-        from ..comm.transport import wire_factor
         if grad_sync == "reduce_scatter":
             rs_factor = wire_factor("reduce_scatter", dp_degree)
             ag_factor = (dp_degree - 1) / dp_degree   # (n−1) × shard/n
@@ -307,8 +309,11 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig,
             metrics["grad_wire_outer_raw_bits"] = outer_f * raw
             metrics["grad_wire_outer_coded_bits"] = outer_f * coded
         if enabled:
-            metrics["moe_dispatch_raw_bits"] = z
-            metrics["moe_wire_raw_bits"] = z
+            dispatch, wire = moe_ep_raw_bits(
+                model_cfg, batch["tokens"].numel(),
+                comp_spec.scheme.total_symbol_bits(), ep_degree)
+            metrics["moe_dispatch_raw_bits"] = z + dispatch
+            metrics["moe_wire_raw_bits"] = z + wire
             for k, v in comp.items():
                 if k.startswith("hist_"):
                     metrics[f"grad_{k}"] = v

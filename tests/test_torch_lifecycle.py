@@ -218,6 +218,41 @@ def test_epoch_fingerprint_equals_reference():
         np.testing.assert_array_equal(ft, fr)
 
 
+@pytest.mark.parametrize("wire", ["books", "spec"])
+def test_epoch_fingerprint_folds_the_a2a_wire_like_reference(wire):
+    """With the MoE all-to-all wire configured in both packages (books,
+    or a bitexact spec), the fingerprints still agree, and differ from
+    the unconfigured ones: the wire's books are part of the epoch."""
+    from repro.comm.compression import CompressionSpec as RefSpec
+    from repro.models import moe as ref_moe
+
+    from repro_torch.comm.compression import CompressionSpec
+    from repro_torch.models import moe
+
+    rm, tm = _managers()
+    before = epoch_fingerprint(tm)
+    saved = (dict(ref_moe._A2A_WIRE), dict(moe._A2A_WIRE))
+    try:
+        h = {"lo": _hist(11), "hi": _hist(12, slice(0, 256))}
+        rb = {p: ref_build(c) for p, c in h.items()}
+        tb = {p: build_codebook(c) for p, c in h.items()}
+        if wire == "books":
+            ref_moe.configure_a2a_wire(rb, chunk=1024)
+            moe.configure_a2a_wire(tb, chunk=1024)
+        else:
+            ref_moe.configure_a2a_wire(spec=RefSpec.from_books(
+                rb, "bf16", mode="bitexact"))
+            moe.configure_a2a_wire(spec=CompressionSpec.from_books(
+                tb, "bf16", mode="bitexact"))
+        ft = epoch_fingerprint(tm)
+        np.testing.assert_array_equal(ft, ref_fingerprint(rm))
+        assert ft[1] != before[1] and ft[0] == before[0]
+    finally:
+        for mod, old in zip((ref_moe, moe), saved):
+            mod._A2A_WIRE.clear()
+            mod._A2A_WIRE.update(old)
+
+
 @pytest.mark.parametrize("over", ["host", "loopback"])
 def test_verify_epoch_agreement_unanimous_passes_laggard_raises(over):
     rm, tm = _managers()

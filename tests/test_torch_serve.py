@@ -153,13 +153,40 @@ def test_engine_refuses_unported_options():
     # a lifecycle manager needs a spec, as in the reference
     with pytest.raises(ValueError, match="needs a comp_spec"):
         Engine(tparams, tcfg, sc, device="cpu", lifecycle=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        Engine(tparams, tcfg, sc, device="cpu", ep_degree=2)
     eng = Engine(tparams, tcfg, sc, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
-    with pytest.raises(NotImplementedError, match="A8"):
-        model_init(ModelConfig(name="m", arch_type="moe", d_model=8,
-                               vocab_size=8,
-                               blocks=(BlockGroup(("attn_moe",), 1),)),
-                   torch.Generator(), device="cpu")
+    for kind in ("mla", "rec", "mamba"):
+        with pytest.raises(NotImplementedError, match="A8"):
+            model_init(ModelConfig(name="m", arch_type="x", d_model=8,
+                                   vocab_size=8,
+                                   blocks=(BlockGroup((kind,), 1),)),
+                       torch.Generator(), device="cpu")
+
+
+def test_engine_moe_wire_raw_bits_equal_reference():
+    """``Engine(ep_degree=4)`` on the reference test's MoE model
+    (``tests/test_stats_and_serve.py`` ``TestServeMoEWireAccounting``):
+    per decode step B × top-k × d × 16 bits × 2 directions × 2 layers at
+    the (n−1)/n all-to-all factor; 0 for a dense model or without
+    expert parallelism."""
+    book = build_codebook(np.ones(256), codec="huffman")
+    spec = CompressionSpec.from_books({"lo": book, "hi": book}, "bf16",
+                                      tensor_kind="act", mode="ledger")
+    prompts = np.ones((2, 8), np.int32)
+    want = {}
+    for kind, ep in (("attn_moe", 4), ("attn_moe", 1), ("attn", 4)):
+        cfg = ModelConfig(name="s", arch_type="moe", d_model=64,
+                          vocab_size=128, blocks=(BlockGroup((kind,), 2),),
+                          n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128,
+                          n_experts=4, experts_per_token=2, moe_d_ff=64,
+                          remat="none")
+        params = model_init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+        eng = Engine(params, cfg, ServeConfig(max_cache_len=64), spec,
+                     ep_degree=ep, device="cpu")
+        _, totals = eng.generate(prompts, 4)
+        want[kind, ep] = totals["moe_wire_raw_bits"]
+    per_step = (4 - 1) / 4 * (2 * 2 * 64 * 16 * 2 * 2)
+    assert want == {("attn_moe", 4): 3 * per_step, ("attn_moe", 1): 0.0,
+                    ("attn", 4): 0.0}

@@ -15,6 +15,8 @@ are held to float32 rounding (the probe's histograms and bits exactly);
 a whole bf16 step is held to ``train.step.STEP_TOL``, since the two
 frameworks round their bf16 products and gradients in other orders.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -39,7 +41,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticDataset  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.lifecycle import BookLifecycleManager  # noqa: E402
-from repro_torch.models import forward_train, model_init  # noqa: E402
+from repro_torch.models import (BlockGroup, forward_train,  # noqa: E402
+                                model_init)
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     from_jax_params, tensor_from_numpy)
@@ -379,11 +382,51 @@ def test_refusals_match_reference():
         with pytest.raises(ValueError) as got:
             tstep.make_train_step(TCFG, adamw.AdamWConfig(), **kw)
         assert str(got.value) == str(want.value)
+    # a block kind still to port refuses inside the train forward
+    mamba = dataclasses.replace(TCFG, blocks=(BlockGroup(("mamba",), 1),))
+    bare = {"embed": {"table": torch.zeros(TCFG.vocab_size, TCFG.d_model)},
+            "groups": (({},),)}
     with pytest.raises(NotImplementedError, match="A8"):
-        tstep.make_train_step(TCFG, adamw.AdamWConfig(), ep_degree=2)
+        tstep.loss_and_grads(bare, {"tokens": torch.zeros(
+            1, 2, dtype=torch.int64), "labels": torch.zeros(
+            1, 2, dtype=torch.int64)}, mamba)
     with pytest.raises(NotImplementedError, match="A8"):
         forward_train({}, {"tokens": torch.zeros(1, 2, dtype=torch.int64),
                            "prefix_embeds": torch.zeros(1, 1, 8)}, TCFG)
+
+
+def test_moe_wire_raw_bits_equal_reference():
+    """``make_train_step(ep_degree=4)`` on reduced llama4: the dispatch
+    raw bits and their all-to-all wire share are the reference's
+    (``repro.comm.transport``'s formula and factor, in float32 as its
+    step computes them), and per token ``moe_ep_raw_bits``, the helper
+    the serve step reports through."""
+    from repro.comm.transport import RING_FACTORS as ref_factors
+    from repro.comm.transport import moe_dispatch_raw_bits as ref_dispatch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.comm.transport import moe_ep_raw_bits
+
+    cfg = get_config("llama4-scout-17b-a16e").reduced()
+    params = model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    book = build_codebook(np.ones(256))
+    spec = CompressionSpec.from_books({"lo": book, "hi": book}, "bf16",
+                                      tensor_kind="grad")
+    tok = torch.zeros((2, 8), dtype=torch.int64)
+    for ep in (4, 1):
+        step = tstep.make_train_step(cfg, adamw.AdamWConfig(),
+                                     comp_spec=spec, ep_degree=ep)
+        _, m = step(tstep.train_state_init(params),
+                    {"tokens": tok, "labels": tok})
+        dispatch = np.float32(ref_dispatch(16, 1, cfg.d_model, 16, 1))
+        wire = np.float32(ref_factors["all_to_all"](4)) * dispatch
+        if ep == 1:
+            dispatch = wire = 0.0
+        assert float(m["moe_dispatch_raw_bits"]) == float(dispatch)
+        assert float(m["moe_wire_raw_bits"]) == float(wire)
+        assert float(m["moe_wire_raw_bits"]) == 8 * moe_ep_raw_bits(
+            cfg, 2, 16, ep)[1]
 
 
 # -------------------------------------------------------------- launcher
