@@ -6,19 +6,21 @@ Ported kinds (the reference's ``_parse`` table):
   local       sliding-window attention + dense MLP
   attn_moe    GQA attention + MoE
   local_moe   windowed attention + MoE
+  mla         MLA attention + dense MLP      mla_moe     MLA + MoE
+  mla_local   windowed MLA + dense MLP       mla_local_moe
 
-The MLA, RG-LRU and Mamba-2 kinds raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.  ``block_apply`` returns (x, aux,
-wire): aux is the MoE load-balance loss (0 elsewhere), wire the
-measured coded bits of the block's compressed MoE dispatch (non-zero
-only under ``moe_impl="a2a"`` on a mesh).  An MoE block's cache is
-``{"mixer": ..., "moe_counts": (B, E) int32}``: the counts carry the
-streaming-capacity state, so decode drops exactly the slots the full
-forward drops.
+The RG-LRU and Mamba-2 kinds raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.  ``block_apply`` returns (x, aux, wire):
+aux is the MoE load-balance loss (0 elsewhere), wire the measured coded
+bits of the block's compressed MoE dispatch (non-zero only under
+``moe_impl="a2a"`` on a mesh).  An MoE block's cache is ``{"mixer":
+..., "moe_counts": (B, E) int32}`` (the mixer's: a KV cache, or MLA's
+latent cache): the counts carry the streaming-capacity state, so decode
+drops exactly the slots the full forward drops.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -26,6 +28,7 @@ from .common import ModelConfig
 from .layers import (attn_apply, attn_cache_init, attn_decode, attn_init,
                      attn_prefill, mlp_apply, mlp_init, rmsnorm_apply,
                      rmsnorm_init)
+from .mla import mla_apply, mla_cache_init, mla_decode, mla_init, mla_prefill
 from .moe import (moe_apply, moe_apply_a2a_block, moe_apply_eshard,
                   moe_decode, moe_init, moe_prefill)
 
@@ -35,11 +38,25 @@ __all__ = ["BLOCK_KINDS", "block_init", "block_apply", "block_cache_init",
 # kind → (mixer, windowed, ffn), the reference's table for what is ported
 _TABLE = {"attn": ("gqa", False, "dense"), "local": ("gqa", True, "dense"),
           "attn_moe": ("gqa", False, "moe"),
-          "local_moe": ("gqa", True, "moe")}
+          "local_moe": ("gqa", True, "moe"),
+          "mla": ("mla", False, "dense"), "mla_moe": ("mla", False, "moe"),
+          "mla_local": ("mla", True, "dense"),
+          "mla_local_moe": ("mla", True, "moe")}
 BLOCK_KINDS = tuple(_TABLE)
-_LATER = {"mla": "MLA (mla.py)", "mla_moe": "MLA (mla.py)",
-          "mla_local": "MLA (mla.py)", "mla_local_moe": "MLA (mla.py)",
-          "rec": "RG-LRU (rglru.py)", "mamba": "Mamba-2 (ssm.py)"}
+_LATER = {"rec": "RG-LRU (rglru.py)", "mamba": "Mamba-2 (ssm.py)"}
+
+class _Mixer(NamedTuple):
+    init: Callable
+    apply: Callable
+    cache_init: Callable
+    decode: Callable
+    prefill: Callable
+
+
+_MIXERS = {"gqa": _Mixer(attn_init, attn_apply, attn_cache_init,
+                         attn_decode, attn_prefill),
+           "mla": _Mixer(mla_init, mla_apply, mla_cache_init, mla_decode,
+                         mla_prefill)}
 _MOE_IMPLS = ("scatter", "eshard", "a2a")
 
 
@@ -58,9 +75,9 @@ def _window(cfg: ModelConfig, windowed: bool) -> int:
 
 
 def block_init(kind: str, cfg: ModelConfig, generator, device):
-    _, _, ffn = _parse(kind)
+    mixer, _, ffn = _parse(kind)
     p: Dict[str, Any] = {"norm_mix": rmsnorm_init(cfg, device)}
-    p["mixer"] = attn_init(cfg, generator, device)
+    p["mixer"] = _MIXERS[mixer].init(cfg, generator, device)
     p["norm_ffn"] = rmsnorm_init(cfg, device)
     p["ffn"] = (moe_init(cfg, generator, device) if ffn == "moe"
                 else mlp_init(cfg, generator, device))
@@ -68,11 +85,12 @@ def block_init(kind: str, cfg: ModelConfig, generator, device):
 
 
 def block_apply(kind: str, params, x, cfg: ModelConfig, mesh=None):
-    """x → (x, aux, wire).  ``mesh`` is the a2a MoE's mesh (default:
-    ``models.moe.current_mesh()``)."""
-    _, windowed, ffn = _parse(kind)
+    """x → (x, aux, wire).  ``mesh`` is the a2a and eshard MoE's mesh
+    (default: ``models.moe.current_mesh()``)."""
+    mixer, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    x = x + attn_apply(params["mixer"], h, cfg, window=_window(cfg, windowed))
+    x = x + _MIXERS[mixer].apply(params["mixer"], h, cfg,
+                                 window=_window(cfg, windowed))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     wire = torch.zeros((), dtype=torch.float64, device=x.device)
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
@@ -83,7 +101,7 @@ def block_apply(kind: str, params, x, cfg: ModelConfig, mesh=None):
         if cfg.moe_impl == "a2a":
             h, aux, wire = moe_apply_a2a_block(params["ffn"], h, cfg, mesh)
         elif cfg.moe_impl == "eshard":
-            h, aux = moe_apply_eshard(params["ffn"], h, cfg)
+            h, aux = moe_apply_eshard(params["ffn"], h, cfg, mesh)
         else:
             h, aux = moe_apply(params["ffn"], h, cfg)
     else:
@@ -93,9 +111,10 @@ def block_apply(kind: str, params, x, cfg: ModelConfig, mesh=None):
 
 def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      device, dtype=None):
-    _, windowed, ffn = _parse(kind)
-    cache = attn_cache_init(cfg, batch, cache_len, device,
-                            window=_window(cfg, windowed), dtype=dtype)
+    mixer, windowed, ffn = _parse(kind)
+    cache = _MIXERS[mixer].cache_init(cfg, batch, cache_len, device,
+                                      window=_window(cfg, windowed),
+                                      dtype=dtype)
     if ffn == "moe":
         return {"mixer": cache,
                 "moe_counts": torch.zeros((batch, cfg.n_experts),
@@ -106,11 +125,11 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
 def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):
     """One token through the block; the cache (the KV slots and an MoE
     block's counts) is updated in place."""
-    _, windowed, ffn = _parse(kind)
+    mixer, windowed, ffn = _parse(kind)
     mixer_cache = cache["mixer"] if ffn == "moe" else cache
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    h, _ = attn_decode(params["mixer"], h, mixer_cache, pos, cfg,
-                       window=_window(cfg, windowed))
+    h, _ = _MIXERS[mixer].decode(params["mixer"], h, mixer_cache, pos, cfg,
+                                 window=_window(cfg, windowed))
     x = x + h
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
     if ffn == "moe":
@@ -122,10 +141,10 @@ def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):
 
 def block_prefill(kind: str, params, x, cfg: ModelConfig, cache_len: int):
     """Full-sequence forward that also materializes the block's cache."""
-    _, windowed, ffn = _parse(kind)
+    mixer, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
-    h, cache = attn_prefill(params["mixer"], h, cfg, cache_len,
-                            window=_window(cfg, windowed))
+    h, cache = _MIXERS[mixer].prefill(params["mixer"], h, cfg, cache_len,
+                                      window=_window(cfg, windowed))
     x = x + h
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
     if ffn == "moe":

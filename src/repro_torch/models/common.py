@@ -1,6 +1,6 @@
 """Model configuration and parameter helpers (port of
 ``repro.models.common``, the fields the ported block kinds read: dense
-attention and MoE).
+attention, MLA and MoE).
 
 A config's layer stack is a tuple of ``BlockGroup``s — (pattern of block
 kinds, repeat count).  Parameters keep the reference's layout: every
@@ -61,8 +61,18 @@ class ModelConfig:
     #   (``models.moe.moe_apply_a2a_block``) — the scatter path's numbers,
     #   the dispatch wire coded and measured a round; needs a mesh with a
     #   "model" axis (``models.moe.use_mesh``), "scatter" without one.
-    # "eshard": the reference's expert-sharded psum path, not ported yet.
+    # "eshard": expert-sharded compute (``models.moe.moe_apply_eshard``):
+    #   every "model" rank runs its local experts over its data shard's
+    #   tokens and one psum over "model" combines; needs a mesh with a
+    #   "model" axis, "scatter" without one.
     moe_impl: str = "scatter"
+    # ---- mla (deepseek) ----
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
@@ -86,6 +96,16 @@ class ModelConfig:
         for g in self.blocks:
             kinds = kinds + g.pattern * g.repeats
         return kinds
+
+    def with_sliding_window(self, window: int) -> "ModelConfig":
+        """The long-context variant: every full-attention kind becomes
+        its windowed twin, as the reference's does."""
+        swa = {"attn": "local", "attn_moe": "local_moe", "mla": "mla_local",
+               "mla_moe": "mla_local_moe"}
+        blocks = tuple(BlockGroup(tuple(swa.get(k, k) for k in g.pattern),
+                                  g.repeats) for g in self.blocks)
+        return replace(self, blocks=blocks, sliding_window=window,
+                       name=self.name + "+swa")
 
     def reduced(self, **overrides) -> "ModelConfig":
         """The ≤2-layer, d_model≤256 smoke variant of the same family,
@@ -113,6 +133,12 @@ class ModelConfig:
             experts_per_token=min(self.experts_per_token, 2)
             if self.experts_per_token else 0,
             moe_d_ff=min(self.moe_d_ff, 256) if self.moe_d_ff else 0,
+            q_lora_rank=min(self.q_lora_rank, 64) if self.q_lora_rank else 0,
+            kv_lora_rank=min(self.kv_lora_rank, 32)
+            if self.kv_lora_rank else 0,
+            qk_nope_head_dim=32 if self.qk_nope_head_dim else 0,
+            qk_rope_head_dim=16 if self.qk_rope_head_dim else 0,
+            v_head_dim=32 if self.v_head_dim else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
             remat="none",
@@ -171,10 +197,13 @@ def tree_unflatten(like, leaves):
 
 
 def tree_stack(trees):
-    """Stack a list of same-structured trees along a new leading axis."""
+    """Stack a list of same-structured trees along a new leading axis
+    (one tree: a view with a leading axis of 1, no copy)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_stack([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 

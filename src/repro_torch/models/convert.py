@@ -33,9 +33,10 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 def from_jax_params(np_tree, cfg: ModelConfig, device=None):
     """The reference's ``model_init`` tree (NumPy leaves) as the port's
     parameters on ``device`` (CUDA unless named), MoE leaves (the float32
-    router, the stacked experts, the shared expert) included.  Checks the
-    embedding, the groups and each MoE block's expert count against
-    ``cfg``."""
+    router, the stacked experts, the shared expert) and MLA leaves (the
+    low-rank projections and their norms) included.  Checks the
+    embedding, the groups, each MoE block's expert count and each MLA
+    block's latent width (``wkv_a``: kv_lora + rope) against ``cfg``."""
     dev = resolve_device(device)
     params = tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
     table = params["embed"]["table"]
@@ -47,6 +48,12 @@ def from_jax_params(np_tree, cfg: ModelConfig, device=None):
                          f"{len(cfg.blocks)} block groups")
     for bg, subs in zip(cfg.blocks, params["groups"]):
         for kind, sub in zip(bg.pattern, subs):
+            if kind.startswith("mla"):
+                w = sub["mixer"]["wkv_a"].shape[-1]
+                want = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+                if w != want:
+                    raise ValueError(f"{kind} block's wkv_a is {w} wide, "
+                                     f"config has kv_lora + rope = {want}")
             if "moe" in kind:
                 e = sub["ffn"]["router"].shape[-1]
                 if e != cfg.n_experts:

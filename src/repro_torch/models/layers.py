@@ -10,7 +10,9 @@ plain torch (einsum and a float32 softmax with optional softcap), as the
 reference computes it in plain jnp.
 
 The cached decode updates the KV cache in place (the reference returns
-a new cache): the caller's cache tensors are the step's output.
+a new cache): the caller's cache tensors are the step's output.  Every
+cache write casts through ``cache_cast``, XLA's rule, so a
+``float8_e4m3fn`` cache holds the reference's bits (NaN past 464).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..comm.wire import to_wire
 from .common import ModelConfig, truncated_normal_init
 
 _NEG = torch.finfo(torch.float32).min
@@ -54,6 +57,19 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float):
     sin = sin[..., None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ------------------------------------------------------------ cache writes
+def cache_cast(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A value written into a KV cache of ``dtype``, cast as the
+    reference's ``astype`` casts it under XLA: to float8_e4m3fn a
+    magnitude past 464 (which rounds beyond 448) gives NaN with its
+    sign, where torch's own conversion saturates (``comm.wire.to_wire``;
+    bf16 and float32 values reach float32 exactly); other dtypes by
+    ``.to``."""
+    if dtype == torch.float8_e4m3fn:
+        return to_wire(v.to(torch.float32), dtype)
+    return v.to(dtype)
 
 
 # ----------------------------------------------------------- GQA attention
@@ -155,8 +171,8 @@ def attn_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
     take = min(s, slots)
     src = torch.arange(take, device=x.device) + (s - take)
     dst = src % slots if window > 0 else src
-    cache["k"][:, dst] = k[:, s - take:].to(cache["k"].dtype)
-    cache["v"][:, dst] = v[:, s - take:].to(cache["v"].dtype)
+    cache["k"][:, dst] = cache_cast(k[:, s - take:], cache["k"].dtype)
+    cache["v"][:, dst] = cache_cast(v[:, s - take:], cache["v"].dtype)
     cache["pos"][dst] = src.to(torch.int32)
     return y, cache
 
@@ -171,8 +187,8 @@ def attn_decode(params, x, cache, pos: int, cfg: ModelConfig, *,
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     slots = ck.shape[1]
     slot = pos % slots if window > 0 else min(pos, slots - 1)
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    ck[:, slot] = cache_cast(k[:, 0], ck.dtype)
+    cv[:, slot] = cache_cast(v[:, 0], cv.dtype)
     cpos[slot:slot + 1].fill_(pos)
     valid = (cpos >= 0) & (cpos <= pos)
     if window > 0:

@@ -19,8 +19,10 @@ row), and the k slots of a token add in slot order, never by atomics.
 The router runs in float32 with the Switch load-balance loss.  The
 compressed wire's codec is process-global configuration
 (``configure_a2a_wire``), folded into the lifecycle's epoch fingerprint
-(``a2a_wire_fingerprint``).  ``moe_impl="eshard"`` (the reference's
-expert-sharded psum path) is not ported yet.
+(``a2a_wire_fingerprint``).  ``moe_apply_eshard`` is the reference's
+expert-sharded path (``moe_impl="eshard"``): each "model" rank runs its
+local experts over its data shard's tokens at a batch-global capacity,
+and a psum over "model" combines.
 """
 from __future__ import annotations
 
@@ -131,8 +133,10 @@ def _slot_thresholds(s: int, cfg: ModelConfig, device) -> torch.Tensor:
     return thr.repeat_interleave(cfg.experts_per_token)
 
 
-def _dispatch(x, topi, cfg: ModelConfig, cap: int):
-    """Every sequence's streaming-capacity dispatch.
+def _dispatch(x, topi, cfg: ModelConfig, cap: int, thr=None):
+    """Every sequence's streaming-capacity dispatch (or, given ``thr``,
+    a fixed capacity: a slot is kept iff fewer than ``thr`` earlier
+    slots of its row group went to its expert).
 
     x (Z, S, d), topi (Z, S, k) → (buf (Z, E, C, d), slot (Z, S·k)
     int64, counts (Z, E) int32).  ``slot`` is each routing slot's row in
@@ -148,7 +152,7 @@ def _dispatch(x, topi, cfg: ModelConfig, cap: int):
     flat_e = topi.reshape(z, s * k)
     onehot = F.one_hot(flat_e, e).to(torch.int32)               # (Z, S·k, E)
     pos = torch.cumsum(onehot, dim=1).gather(2, flat_e[..., None])[..., 0] - 1
-    keep = pos < _slot_thresholds(s, cfg, dev)
+    keep = pos < (_slot_thresholds(s, cfg, dev) if thr is None else thr)
     base = torch.arange(z, device=dev)[:, None] * (e * cap)
     dump = z * e * cap
     slot = torch.where(keep, base + flat_e * cap + pos, dump)
@@ -575,7 +579,87 @@ def moe_apply_a2a_block(params, x, cfg: ModelConfig, mesh=None):
     return _join_batch(y, order), aux[first], coded[first]
 
 
-def moe_apply_eshard(params, x, cfg: ModelConfig):
-    raise NotImplementedError(
-        "moe_impl='eshard' (the expert-sharded psum path) is not ported "
-        "yet (ROADMAP.md A8: moe_apply_eshard)")
+def moe_apply_eshard(params, x, cfg: ModelConfig, mesh=None):
+    """``moe_impl="eshard"``: the reference's expert-sharded MoE.
+
+    ``mesh`` (default: ``current_mesh()``) holds a ``"model"`` axis and
+    data axes; without a ``"model"`` axis this is ``moe_apply``, as in
+    the reference.  The batch splits over the data axes (in mesh order,
+    the first major); ``"model"`` rank m owns experts ``[m·E/tp,
+    (m+1)·E/tp)``.  Each data shard's slots take positions token-major,
+    k-minor, per expert, and a slot past the batch-global
+    ``moe_capacity(tokens of the shard)`` is dropped (not the streaming
+    capacity: this is a training path, and its decode is not the
+    forward's).  Each rank's experts run over its data shard's buffer,
+    each rank combines its own experts' slots (a token's slots in slot
+    order), and a psum over ``"model"`` adds the ranks' partial outputs
+    in rank order, rounding each add, as XLA's psum does.  The aux loss
+    is the Switch loss of each data shard, averaged by a pmean over
+    ``"model"`` and then over each data axis.  The shared expert runs
+    over the whole ``x``.
+
+    The axes are loopback axes on one stack of ranks
+    (``comm.loopback_mesh``): the router runs once over every rank's
+    rows, so ``topi`` does not depend on how the rows are split, and
+    each expert runs one product over the buffers of every data shard
+    (``_experts``), the rows its data ranks give it.  Returns (y, aux).
+    Raises for an ``n_experts`` that the ``"model"`` size does not
+    divide, a batch that the data axes do not divide, and an axis that
+    is not a loopback axis.
+    """
+    from ..comm.axis import LoopbackAxis
+
+    mesh = current_mesh() if mesh is None else mesh
+    if not mesh or "model" not in mesh:
+        return moe_apply(params, x, cfg)
+    if not all(isinstance(a, LoopbackAxis) for a in mesh.values()):
+        raise NotImplementedError(
+            "moe_apply_eshard splits the batch over a loopback mesh; a "
+            "process-group axis is not supported")
+    tp = mesh["model"].size
+    e, k = cfg.n_experts, cfg.experts_per_token
+    if e % tp != 0:
+        raise ValueError(f"n_experts={e} not divisible by axis 'model' "
+                         f"size {tp}")
+    data_axes = tuple(a for a in mesh if a != "model")
+    dp = math.prod(mesh[a].size for a in data_axes)
+    b, s, d = x.shape
+    if b % dp != 0:
+        raise ValueError(f"batch {b} not divisible by the data axes "
+                         f"{data_axes} ({dp} shards)")
+    e_local, n_local = e // tp, b // dp * s
+    cap = moe_capacity(n_local, cfg)
+
+    xs, order = _split_batch(x, mesh, data_axes)   # data dims + (B/dp,S,d)
+    xz = xs.reshape(dp, n_local, d)                # one row group a shard
+    topw, topi, probs = _route_probs(params, xz.reshape(-1, d), cfg)
+    topi = topi.reshape(dp, n_local, k)
+    aux_shard = _aux(topi, probs.reshape(dp, n_local, e), cfg)     # (dp,)
+    buf, slot, _ = _dispatch(xz, topi, cfg, cap, thr=cap)
+    out_buf = _experts(buf, _expert_weights(params), cfg)
+
+    # each rank combines its own experts' slots; the rest read the zero row
+    owner = topi.reshape(dp, n_local * k) // e_local
+    dump = dp * e * cap
+    topw = topw.reshape(dp, n_local, k)
+    parts = torch.stack([_combine(out_buf, torch.where(owner == m, slot,
+                                                       dump), topw, n_local)
+                         for m in range(tp)], dim=1)   # (dp, tp, n, d)
+
+    # onto the mesh's rank dims: the data dims in mesh order, "model"
+    # at its own dim
+    mdim = mesh["model"].dim
+    data_sizes = xs.shape[:len(order)]
+    ranked = parts.reshape(*data_sizes, tp, n_local, d).movedim(
+        len(order), mdim)
+    aux = aux_shard.reshape(*data_sizes, 1).expand(
+        *data_sizes, tp).movedim(-1, mdim)
+    y = mesh["model"].psum(ranked).select(mdim, 0)
+    aux = mesh["model"].psum(aux) / tp
+    for a in data_axes:
+        aux = mesh[a].psum(aux) / mesh[a].size
+    y = _join_batch(y.reshape(*data_sizes, b // dp, s, d), order)
+    if cfg.n_shared_experts > 0:
+        y = y + mlp_apply(params["shared"], x.reshape(-1, d),
+                          cfg).reshape(x.shape)
+    return y, aux.reshape(-1)[0]

@@ -84,8 +84,9 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     Each layer's parameters are ``unbind`` views of its group's stacked
     leaves, so the backward writes each stacked gradient once (one
     ``stack``), not once a layer.  ``cfg.remat`` "block" (and
-    "save_mixer_ffn", the same here: a block's only collective, the a2a
-    MoE wire, is lossless, so its re-run gives the same values)
+    "save_mixer_ffn", the same here: a block's only collectives, the a2a
+    MoE wire and the eshard MoE's loopback psum, are exact and in a
+    fixed order, so their re-run gives the same values)
     recomputes each block in the backward
     (``torch.utils.checkpoint``).  ``aux`` is the layers' summed MoE
     balance loss (float32); ``with_stats`` appends

@@ -25,7 +25,10 @@ Expert parallelism: with ``ep_degree > 1`` and an MoE model, each step
 reports ``moe_wire_raw_bits``, the analytic raw bits of its expert
 dispatch and combine on an ``ep_degree``-way all-to-all (the decode's
 experts run on this device; ``models.moe.moe_apply_a2a`` is the coded
-wire itself).  Prefix embeddings (VLM and audio) are not ported yet and
+wire itself).  MLA models serve from their latent caches
+(``models.mla``); under ``kv_mode="coded"`` the ``CodedKVStore`` codes
+only ``{k, v, pos}`` nodes, so a latent cache stays raw, as in the
+reference.  Prefix embeddings (VLM and audio) are not ported yet and
 raise ``NotImplementedError`` (ROADMAP.md A8).
 """
 from __future__ import annotations

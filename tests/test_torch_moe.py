@@ -342,8 +342,14 @@ def test_a2a_refusals_and_fallbacks():
         assert torch.equal(_bits(y), _bits(y_sc)), mesh
         assert float(aux) == float(aux_sc) and float(coded) == 0.0
     assert moe.current_mesh() is None
-    with pytest.raises(NotImplementedError, match="eshard"):
-        moe.moe_apply_eshard(tp, x, tcfg)
+    # eshard runs: without a mesh it is moe_apply, on a data x model mesh
+    # its own path (tests/test_torch_eshard.py holds it to the reference)
+    y, aux = moe.moe_apply_eshard(tp, x, tcfg)
+    assert torch.equal(_bits(y), _bits(y_sc)) and float(aux) == float(aux_sc)
+    y, aux = moe.moe_apply_eshard(tp, x, tcfg,
+                                  loopback_mesh({"data": 2, "model": 2}))
+    assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+    assert aux.shape == () and float(aux) > 0
 
 
 def _no_router(tree):

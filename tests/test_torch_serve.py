@@ -156,7 +156,7 @@ def test_engine_refuses_unported_options():
     eng = Engine(tparams, tcfg, sc, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
-    for kind in ("mla", "rec", "mamba"):
+    for kind in ("rec", "mamba"):
         with pytest.raises(NotImplementedError, match="A8"):
             model_init(ModelConfig(name="m", arch_type="x", d_model=8,
                                    vocab_size=8,
