@@ -193,11 +193,50 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    prefill, the a2a call with its wires' kernels, ``moe_apply``, the
    experts' products, the eshard call; then the ``reduced()`` DeepSeek
    step on the card and the CPU within ``STEP_TOL``;
-11. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
-   one ``{"train": ...}``, one ``{"moe": ...}`` and one ``{"deepseek":
-   ...}`` record, one ``{"kernels": [...]}`` record (B1-B8, with
-   ``launches_by_path`` for every path), then ``{"ok": true, "device":
-   {...}}``.
+11. RG-LRU: ``recurrentgemma-9b`` at full width and full depth (38
+   layers: 12 x (``rec``, ``rec``, ``local``) + 2 ``rec``; 9.63 B
+   parameters from seed 0, after DeepSeek is freed).  Launch counts are
+   reset before and read after the path (``launches_by_path
+   ["recurrentgemma"]``): ``Engine`` serving 4 x 64 prompts for 32
+   tokens through the bitexact wire (``multisym``, books from a warm-up
+   prefill's logits), the engine without books, and the engine with
+   ``kv_mode="coded"`` (Huffman, KV chunk 512: the 12 local layers' K/V
+   coded, the 26 ``rec`` layers' ``{h, conv}`` passed through raw).
+   Checked: every wire step lossless with B2 bits = B5 . lengths, the
+   tokens of the engine without books; the coded engine's tokens and
+   every step's logits equal to the raw engine's bit for bit, the raw
+   state counted alike on both sides of the KV ledger (its coded/raw
+   printed); a replay of the engine's steps against one prefill of the
+   whole sequence: every decoded token's logits and every ``rec``
+   layer's ``h`` after the last step within ``DECODE_TOL``; one ``rec``
+   layer's scan on its real gates at 4 x 4096 against a sequential
+   float32 loop over the same (a, b) on the card within ``SCAN_TOL``.
+   Timed: the decode step (host median, device ms), a ``rec`` layer's
+   decode and 4 x 64 prefill, the 4 x 4096 scan, peak memory; then the
+   ``reduced()`` step on the card and the CPU in bf16, held to
+   ``STEP_TOL`` (where bf16 misses, printed, and the float32 step held),
+   beside the first op of the reduced forward whose outputs on the card
+   part from the CPU's by more than a bf16 ulp (every op's output taped
+   in call order on both devices);
+12. Mamba-2: ``mamba2-780m`` at full width and full depth (48 ``mamba``
+   layers, d 1536, 48 heads of 64, state 128, tied embeddings; 0.78 B
+   parameters), the same path, checks and times as phase 11
+   (``launches_by_path["mamba2"]``; the logits plane, 4 x 50 280
+   symbols, ends in a 416-symbol chunk; the coded KV engine codes
+   nothing and passes every state through), each layer's ``state``
+   after the replay against the full prefill's final state (the prompt
+   is padded to the 128-step chunk inside) -- the replay held on a
+   float32 copy of the weights, the bf16 replay's readings printed
+   (``REPLAY_DTYPE``: the random 48-layer stack carries a bf16 rounding
+   ~100x, in the reference as in the port) -- and one layer's
+   ``ssd_chunked`` on its real (x, dt, B, C) at 4 x 2048 (16 chunks)
+   against the sequential recurrence in float32 on the card within
+   ``SSD_TOL`` (y and the final state);
+13. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+   one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
+   ...}`` and one ``{"recurrent": ...}`` record, one ``{"kernels":
+   [...]}`` record (B1-B8, with ``launches_by_path`` for every path),
+   then ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -987,7 +1026,15 @@ def main() -> int:
     ds_rec, ds_launches = deepseek_phase(torch, dev, card, build)
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ 11. records
+    # ------------- 11-12. the recurrent kinds at full width and full depth
+    recurrent, rec_launches = {}, {}
+    for n, arch in enumerate(RECURRENT, start=11):
+        phase(f"{n}. {arch} at full width and depth")
+        recurrent[arch], rec_launches[RECURRENT[arch][0]] = recurrent_phase(
+            torch, dev, card, build, arch)
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 13. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1000,7 +1047,7 @@ def main() -> int:
     paths = {"wire_serve": launches, "coded_at_rest": coded_launches,
              "ring": ring_launches, "train": train_launches,
              "lifecycle": life_launches, "moe": moe_launches,
-             "deepseek": ds_launches}
+             "deepseek": ds_launches, **rec_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -1046,6 +1093,7 @@ def main() -> int:
     print(json.dumps({"card": card, "train": trained}))
     print(json.dumps({"card": card, "moe": moe_rec}))
     print(json.dumps({"card": card, "deepseek": ds_rec}))
+    print(json.dumps({"card": card, "recurrent": recurrent}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3558,6 +3606,443 @@ def deepseek_phase(torch, dev, card, build):
         torch, dev, full.reduced(dtype=torch.float32), "deepseek", card)
     rec["reduced_card_vs_cpu_bf16"] = reduced_step_card_vs_cpu(
         torch, dev, full.reduced(), "deepseek", card, gate=False)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+# ------------------------------------------------ recurrent kinds (11, 12)
+# arch -> (launches_by_path key, block kind, the cache's state key)
+RECURRENT = {"recurrentgemma-9b": ("recurrentgemma", "rec", "h"),
+             "mamba2-780m": ("mamba2", "mamba", "state")}
+KV_CHUNK = 512                # the coded KV store's chunk
+SCAN_LEN, SSD_LEN = 4096, 2048
+# the log-depth scan against a sequential float32 loop over the same
+# (a, b): ~1 000 float32 adds feed each h where a nears 0.999, in
+# another order in each
+SCAN_TOL = 1e-4
+# ssd_chunked against the sequential recurrence in float32 on the card
+# (the reference's own tolerance against its float64 oracle)
+SSD_TOL = 2e-4
+# The dtype in which each model's decode replay is held to DECODE_TOL
+# (the other readings printed).  The random mamba2-780m stack carries a
+# bf16 rounding of its input ~100x through its 48 layers: its bf16 replay
+# parts from the full prefill by ~0.3 of the logits' max, and the
+# reference's own bf16 replay of the same stack at d 256 parts as far
+# (tests/test_torch_ssm.py::test_bf16_decode_drift_equals_reference), so
+# its replay is held on a float32 copy of the weights.
+REPLAY_DTYPE = {"recurrentgemma-9b": "bfloat16", "mamba2-780m": "float32"}
+
+
+def record_logits(eng) -> list:
+    """The list that will hold a copy of every decode step's logits of
+    ``eng`` (its step wrapped)."""
+    out, step = [], eng._step
+
+    def rec(*a):
+        logits, caches, m = step(*a)
+        out.append(logits.detach().clone())
+        return logits, caches, m
+
+    eng._step = rec
+    return out
+
+
+def op_tape(torch):
+    """A ``TorchFunctionMode`` (a context manager) whose ``ops`` list
+    gets every floating-point tensor a torch call returns, in call
+    order, as a CPU copy; uninitialised allocations (``*empty*``) are
+    left out."""
+    from torch.overrides import TorchFunctionMode
+
+    class Tape(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", str(func))
+            if (isinstance(out, torch.Tensor) and out.is_floating_point()
+                    and "empty" not in name):
+                self.ops.append((name, out.detach().to("cpu", copy=True)))
+            return out
+
+    tape = Tape()
+    tape.ops = []
+    return tape
+
+
+def first_divergence(torch, dev, rcfg) -> dict:
+    """The reduced model's forward (seed-0 params, 2 x 32 tokens) on the
+    CPU and on the card, every op's output taped: the first op whose
+    output differs from the CPU's by more than one bf16 ulp of the CPU's
+    entry (2^(e-8) for |w| = m 2^e, m in [0.5, 1)), and the first that
+    differs at all."""
+    import numpy as np
+
+    from repro_torch.models import forward, model_init
+    from repro_torch.models.common import tree_map
+
+    params = model_init(rcfg, torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, rcfg.vocab_size, (2, 32)))
+    tapes = []
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), params)
+        with op_tape(torch) as tape, torch.no_grad():
+            forward(p, {"tokens": tok.to(where)}, rcfg)
+        tapes.append(tape.ops)
+    (cpu, card) = tapes
+    out = {"ops": len(cpu), "ops_card": len(card), "first_differing": None,
+           "first_beyond_ulp": None}
+    for i, ((name, w), (name_d, g)) in enumerate(zip(cpu, card)):
+        if name != name_d or w.shape != g.shape:
+            out["tapes_part_at"] = {"index": i, "cpu": name, "card": name_d}
+            break
+        d = (g.double() - w.double()).abs()
+        if out["first_differing"] is None and bool((d > 0).any()):
+            out["first_differing"] = {"index": i, "op": name}
+        ulp = torch.where(w == 0, 0.0, torch.ldexp(
+            torch.ones_like(w, dtype=torch.float64),
+            torch.frexp(w.double())[1] - 8))
+        beyond = d > ulp
+        if bool(beyond.any()):
+            out["first_beyond_ulp"] = {
+                "index": i, "op": name, "shape": list(w.shape),
+                "dtype": str(w.dtype).split(".")[-1],
+                "entries_beyond": int(beyond.sum()),
+                "max_abs_diff": float(d.max()),
+                "rel_err": float(d.max() / w.double().abs().max()),
+                "ops_before": [n for n, _ in cpu[max(0, i - 6):i]]}
+            break
+    return out
+
+
+def recurrent_phase(torch, dev, card, build, arch: str):
+    """Phases 11 and 12: ``arch`` (``recurrentgemma-9b`` or
+    ``mamba2-780m``) at full width and full depth (see the module
+    docstring).  Returns the record and the path's launch counts."""
+    from dataclasses import replace
+
+    from repro_torch.comm.compression import CompressionSpec, histogram256
+    from repro_torch.configs import get_config
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import chunk_counts_for
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.models import (decode_step, model_init, param_count,
+                                    prefill)
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.common import tree_index, tree_leaves, tree_map
+    from repro_torch.models.layers import embed_apply, rmsnorm_apply, silu
+    from repro_torch.serve import Engine, ServeConfig
+
+    path, kind, skey = RECURRENT[arch]
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = param_count(params)
+    gb = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 1e9
+    kinds = cfg.layer_kinds
+    print(f"{arch} at full width and depth ({len(kinds)} layers: "
+          f"{kinds.count(kind)} {kind}"
+          + (f", {len(kinds) - kinds.count(kind)} local" if kind == "rec"
+             else "") + f"): {n_params / 1e9:.4f} B parameters, {gb:.2f} "
+          f"GB; init {init_s:.1f} s, peak memory {init_peak:.2f} GB [{card}]")
+    rec = {"model": arch, "layers": len(kinds), "kinds": sorted(set(kinds)),
+           "params": n_params, "param_gb": gb, "init_s": init_s,
+           "init_peak_memory_gb": init_peak, "card": card}
+    # (group, sub, repeat) of every recurrent layer, in order
+    where = [(gi, si, r) for gi, bg in enumerate(cfg.blocks)
+             for r in range(bg.repeats)
+             for si, k in enumerate(bg.pattern) if k == kind]
+
+    # ---- books for the serve wire: a warm-up prefill's logits (B5)
+    warm = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                         device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, device=dev)
+    with torch.no_grad():
+        wl, _ = prefill(params, {"tokens": warm}, cfg, PROMPT + NEW)
+    books = {p: build_codebook(histogram256(s).cpu().numpy(),
+                               key=("act", "bf16", p))
+             for p, s in SCHEMES["bf16"].to_symbols(
+                 wl[:, -1].to(torch.bfloat16)).items()}
+    del wl
+    spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                      mode="bitexact", transport="chunked",
+                                      chunk=CHUNK, decode_backend="multisym")
+    kv_spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                         chunk=KV_CHUNK)
+    sc = ServeConfig(max_cache_len=PROMPT + NEW)
+
+    # ---- the path: the wire serve, the engine without books, the coded
+    # KV serve; launch counts reset just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    eng = Engine(params, cfg, sc, spec, device=dev)
+    t0 = time.perf_counter()
+    toks, totals = eng.generate(prompts, NEW)
+    serve_s = time.perf_counter() - t0
+    plain = Engine(params, cfg, sc, device=dev)
+    plain_logits = record_logits(plain)
+    toks_plain, _ = plain.generate(prompts, NEW)
+    coded = Engine(params, cfg, sc, kv_spec, kv_mode="coded", device=dev)
+    coded_logits = record_logits(coded)
+    toks_coded, ctot = coded.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{path} path: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{launches} [{card}]")
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym"):
+        need(launches[k] > 0, f"{path}: kernel {k} was not launched")
+
+    # ---- the wire: lossless, B2 = B5 . lengths, the plain engine's tokens
+    n_sym = BATCH * cfg.vocab_size
+    counts = chunk_counts_for(n_sym, CHUNK)
+    steps = eng.step_metrics
+    need(toks.shape == (BATCH, NEW), f"{path}: tokens {toks.shape}")
+    need(len(steps) == NEW - 1, f"{path}: {len(steps)} decode steps")
+    need(totals["act_decode_mismatch"] == 0.0,
+         f"{path} serve: {totals['act_decode_mismatch']} mismatches")
+    for i, m in enumerate(steps):
+        need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
+             f"{path} serve step {i}: B2 bits {m['act_decoded_bits']} != "
+             f"histogram . lengths {m['act_coded_bits']}")
+        need(m["act_decode_chunks"] == 2 * len(counts),
+             f"{path} serve step {i}: {m['act_decode_chunks']} chunks")
+    need((toks == toks_plain).all(), f"{path} serve: the tokens differ "
+         f"from the engine's without books")
+    # ---- coded KV: the raw engine's tokens and logits, bit for bit
+    need((toks_coded == toks_plain).all(), f"{path} coded KV: the tokens "
+         f"differ from the raw engine's")
+    need(len(coded_logits) == len(plain_logits) == NEW - 1,
+         f"{path} coded KV: {len(coded_logits)} steps recorded")
+    for i, (a, b) in enumerate(zip(coded_logits, plain_logits)):
+        need(torch.equal(a.view(torch.int16), b.view(torch.int16)),
+             f"{path} coded KV step {i}: logits differ from the raw "
+             f"engine's")
+    segs = coded._kv._segments
+    kv_ratio = ctot["kv_hbm_coded_bits"] / ctot["kv_hbm_raw_bits"]
+    raw_leaf_bits = coded._kv._raw_leaf_bits()
+    need(ctot["kv_hbm_raw_bits"] - ctot["kv_hbm_coded_bits"] == sum(
+        s.raw_bits - s.coded_bits for v in segs.values() for s in v),
+         f"{path} coded KV: the raw state is not counted alike on both "
+         f"sides")
+    need(bool(segs) == (kind == "rec"), f"{path} coded KV: coded nodes "
+         f"{sorted(segs)}")
+    step_s = sorted(m["step_seconds"] for m in steps)
+    bare = sorted(m["step_seconds"] for m in plain.step_metrics)
+    serve = {"new_tokens": NEW, "generate_s": serve_s,
+             "decode_step_ms_median": step_s[len(step_s) // 2] * 1e3,
+             "decode_step_ms_median_no_wire": bare[len(bare) // 2] * 1e3,
+             "coded_over_raw": totals["act_coded_bits"]
+             / totals["act_raw_bits"],
+             "chunks_a_plane": len(counts),
+             "last_chunk_symbols": int(counts[-1]),
+             "kv_coded_nodes": sorted(segs),
+             "kv_hbm_raw_bits": ctot["kv_hbm_raw_bits"],
+             "kv_hbm_coded_bits": ctot["kv_hbm_coded_bits"],
+             "kv_raw_pass_through_bits": raw_leaf_bits,
+             "kv_coded_over_raw": kv_ratio, "peak_memory_gb": serve_peak,
+             "launches": launches}
+    print(f"{path} serve: {len(counts)} chunks a plane (the last "
+          f"{int(counts[-1])} symbols), every step lossless; decode step "
+          f"{serve['decode_step_ms_median']:.3f} ms median "
+          f"({serve['decode_step_ms_median_no_wire']:.3f} ms without the "
+          f"wire), coded/raw {serve['coded_over_raw']:.4f}; coded KV "
+          f"(chunk {KV_CHUNK}): tokens and every step's logits equal to the "
+          f"raw engine's, coded nodes {sorted(segs)}, {raw_leaf_bits} bits "
+          f"passed through raw, KV coded/raw {kv_ratio:.4f}; peak memory "
+          f"{serve_peak:.2f} GB [{card}]")
+    del eng, plain, coded, plain_logits, coded_logits
+
+    # ---- decode against one prefill of the whole sequence: every decoded
+    # token's logits, every recurrent layer's state after the last step
+    seq = torch.cat([prompts, torch.from_numpy(toks).to(dev)], dim=1)
+    n_seq = PROMPT + NEW - 1
+
+    def replay(ps, c):
+        with torch.no_grad():
+            _, dc = prefill(ps, {"tokens": prompts}, c, PROMPT + NEW)
+            outs = []
+            for t in range(PROMPT, n_seq):
+                lg, dc = decode_step(ps, seq[:, t:t + 1], dc, t, c)
+                outs.append(lg[:, 0].float())
+            lg_full, fc = prefill(ps, {"tokens": seq[:, :n_seq]}, c,
+                                  PROMPT + NEW)
+        err = token_rel_err(torch, torch.stack(outs, dim=1),
+                            lg_full[:, PROMPT:n_seq])
+        need(bool(torch.isfinite(err).all()), f"{path} decode replay: "
+             f"logits not finite")
+        return {"logits_rel_err_max": float(err.max()),
+                "state_rel_err_by_layer": [
+                    max_rel_diff(torch, dc[g][s][skey][r], fc[g][s][skey][r])
+                    for g, s, r in where]}, dc
+
+    replays = {}
+    replays["bfloat16"], caches = replay(params, cfg)
+    if REPLAY_DTYPE[arch] == "float32":
+        p32 = tree_map(lambda t: t.float(), params)
+        replays["float32"], _ = replay(p32, replace(cfg,
+                                                    dtype=torch.float32))
+        del p32
+    for dt, r in replays.items():
+        r["state_rel_err_max"] = max(r["state_rel_err_by_layer"])
+        print(f"{path} decode vs one prefill of {n_seq} tokens ({dt}"
+              f"{', held' if dt == REPLAY_DTYPE[arch] else ', printed'}): "
+              f"logits rel err {r['logits_rel_err_max']:.3e} (every one of "
+              f"{BATCH * (n_seq - PROMPT)} tokens), {skey} rel err "
+              f"{r['state_rel_err_max']:.3e} (worst of {len(where)} layers)"
+              f" [{card}]")
+    held = replays[REPLAY_DTYPE[arch]]
+    need(held["logits_rel_err_max"] < DECODE_TOL, f"{path} decode vs full "
+         f"forward: logits rel err {held['logits_rel_err_max']}")
+    need(held["state_rel_err_max"] < DECODE_TOL, f"{path} decode vs full "
+         f"forward: {skey} rel err {held['state_rel_err_max']} in some "
+         f"layer")
+    serve.update(replay=replays, replay_held=REPLAY_DTYPE[arch],
+                 decode_tokens=BATCH * (n_seq - PROMPT))
+
+    # ---- one layer's scan (rec) / SSD (mamba) on its real inputs at full
+    # length against the sequential recurrence in float32 on the card
+    g0, s0, r0 = where[0]
+    p = tree_index(params["groups"][g0][s0], r0)
+    mix = p["mixer"]
+    n_len = SCAN_LEN if kind == "rec" else SSD_LEN
+    tok = torch.randint(0, cfg.vocab_size, (BATCH, n_len), generator=gen,
+                        device=dev)
+    with torch.no_grad():
+        u = rmsnorm_apply(p["norm_mix"], embed_apply(params["embed"], tok,
+                                                     cfg), cfg.norm_eps)
+        t0 = time.perf_counter()
+        if kind == "rec":
+            a, b = rglru._gates(mix, rglru._causal_conv1d(
+                u @ mix["w_in"], mix["conv"]))
+            del u
+            _, h = rglru._linear_scan(a, b)
+            hs, ht = torch.empty_like(b), torch.zeros_like(b[:, 0])
+            for t in range(n_len):
+                ht = a[:, t] * ht + b[:, t]
+                hs[:, t] = ht
+            long_err = {"h": max_rel_diff(torch, h, hs)}
+            long_case = {"a_min": float(a.min()), "a_max": float(a.max()),
+                         "shape": list(a.shape)}
+
+            def long_fn():
+                return rglru._linear_scan(a, b)[1]
+        else:
+            z, x_raw, b_raw, c_raw, dt = ssm._project(mix, u, cfg)
+            del u, z
+            rep = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+            rep //= cfg.ssm_n_groups
+            x = silu(ssm._causal_conv(x_raw, mix["conv_x"]))
+            bh = torch.repeat_interleave(silu(ssm._causal_conv(
+                b_raw, mix["conv_B"])), rep, dim=2)
+            ch = torch.repeat_interleave(silu(ssm._causal_conv(
+                c_raw, mix["conv_C"])), rep, dim=2)
+            a_neg = -torch.exp(mix["A_log"])
+            y, final = ssm.ssd_chunked(x, dt, a_neg, bh, ch,
+                                       chunk=cfg.ssm_chunk,
+                                       return_final_state=True)
+            xf, bf, cf = x.float(), bh.float(), ch.float()
+            state = torch.zeros_like(final)
+            ys = torch.empty_like(y)
+            for t in range(n_len):
+                da = torch.exp(dt[:, t] * a_neg[None, :])
+                state = (state * da[..., None, None]
+                         + dt[:, t][..., None, None]
+                         * xf[:, t][..., :, None] * bf[:, t][:, :, None, :])
+                ys[:, t] = (state * cf[:, t][:, :, None, :]).sum(-1)
+            long_err = {"y": max_rel_diff(torch, y, ys),
+                        "state": max_rel_diff(torch, final, state)}
+            long_case = {"shape": list(x.shape), "chunks": n_len
+                         // cfg.ssm_chunk, "dt_max": float(dt.max())}
+
+            def long_fn():
+                return ssm.ssd_chunked(x, dt, a_neg, bh, ch,
+                                       chunk=cfg.ssm_chunk)
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        tol = SCAN_TOL if kind == "rec" else SSD_TOL
+        need(all(v <= tol for v in long_err.values()), f"{path}: the "
+             f"{'scan' if kind == 'rec' else 'SSD'} at {BATCH} x {n_len} vs "
+             f"the sequential loop: {long_err} > {tol}")
+        long_ms = {"ms": cuda_ms(torch, long_fn, 3)}
+        long_ms["device_ms"], long_ms["device_ops"] = device_ms(
+            torch, long_fn, 3)
+    what = "scan" if kind == "rec" else "ssd_chunked"
+    rec["long"] = {"what": what, "batch": BATCH, "length": n_len,
+                   "rel_err": long_err, "tolerance": tol, **long_case,
+                   "check_s": long_s, **long_ms}
+    print(f"{path}: one layer's {what} on its real inputs at {BATCH} x "
+          f"{n_len} vs a sequential float32 loop: rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in long_err.items())
+          + f" (tolerance {tol}; {long_case}); {long_ms['ms']:.3f} ms "
+          f"({long_ms['device_ms']:.3f} device, {long_ms['device_ops']:.0f} "
+          f"device ops) [{card}]")
+    del tok
+    if kind == "rec":
+        del a, b, h, hs, ht
+    else:
+        del x, bh, ch, y, ys, xf, bf, cf, x_raw, b_raw, c_raw, dt
+
+    # ---- times: a decode step (device), a layer's decode and prefill
+    last = seq[:, n_seq - 1:n_seq]
+    layer_cache = tree_index(caches[g0][s0], r0)
+    decode_fn, prefill_fn = ((rglru.rglru_decode, rglru.rglru_prefill)
+                             if kind == "rec" else
+                             (ssm.mamba_decode, ssm.mamba_prefill))
+    with torch.no_grad():
+        xq = rmsnorm_apply(p["norm_mix"], embed_apply(
+            params["embed"], last, cfg), cfg.norm_eps)
+        xp = rmsnorm_apply(p["norm_mix"], embed_apply(
+            params["embed"], prompts, cfg), cfg.norm_eps)
+        step_dev, step_ops = device_ms(torch, lambda: decode_step(
+            params, last, caches, n_seq - 1, cfg)[0], 3)
+        layer = {}
+        for k, fn in (("decode", lambda: decode_fn(
+                mix, xq, layer_cache, n_seq - 1, cfg)[0]),
+                      ("prefill", lambda: prefill_fn(mix, xp, cfg)[0])):
+            r = {"ms": cuda_ms(torch, fn, 3)}
+            r["device_ms"], r["device_ops"] = device_ms(torch, fn, 3)
+            layer[k] = r
+    table = params["embed"]["table"]          # a step reads B rows of it
+    read_gb = gb - (0 if cfg.tie_embeddings
+                    else table.numel() * table.element_size() / 1e9)
+    serve.update(decode_step_device_ms=step_dev,
+                 decode_step_device_ops=step_ops,
+                 decode_step_weight_gb=read_gb, layer=layer)
+    print(f"{path}: a decode step {step_dev:.3f} ms device ({step_ops:.0f} "
+          f"device ops); weights a step reads {read_gb:.2f} GB, "
+          f"{read_gb * 1e12 / HBM_BYTES_PER_S:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; one {kind} layer: " + ", ".join(
+              f"{k} {r['ms']:.3f} ms ({r['device_ms']:.3f} device, "
+              f"{r['device_ops']:.0f} ops)" for k, r in layer.items())
+          + f" [{card}]")
+    rec["serve"] = serve
+    del params, caches, layer_cache, p, mix, table
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config: one step on the card and one on the CPU in
+    # bf16, held to STEP_TOL; the first op of the forward whose outputs
+    # part by more than a bf16 ulp; float32 held only where bf16 misses
+    red = cfg.reduced()
+    rec["first_divergence_bf16"] = first_divergence(torch, dev, red)
+    print(f"{path} reduced forward, card vs CPU (bf16): "
+          f"{json.dumps(rec['first_divergence_bf16'])} [{card}]")
+    bf16 = reduced_step_card_vs_cpu(torch, dev, red, path, card, gate=False)
+    rec["reduced_card_vs_cpu_bf16"] = bf16
+    if not bf16["within_step_tol"]:
+        rec["reduced_card_vs_cpu"] = reduced_step_card_vs_cpu(
+            torch, dev, cfg.reduced(dtype=torch.float32), path, card)
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, launches
 

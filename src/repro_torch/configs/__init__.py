@@ -1,8 +1,7 @@
 """Architecture registry (port of ``repro.configs``): the configs whose
-block kinds are ported (dense attention, MLA and MoE);
-``recurrentgemma-9b``, ``mamba2-780m``, ``hubert-xlarge`` and
-``internvl2-26b`` wait for the RG-LRU and Mamba-2 kinds and prefix
-embeddings (ROADMAP.md A8)."""
+block kinds are ported (dense attention, MLA, MoE, RG-LRU and Mamba-2);
+``hubert-xlarge`` and ``internvl2-26b`` wait for prefix embeddings
+(ROADMAP.md A8)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +18,8 @@ _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-780m": "mamba2_780m",
 }
 ARCH_IDS = tuple(_MODULES)
 

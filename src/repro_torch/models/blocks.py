@@ -1,22 +1,25 @@
 """Block kinds (port of ``repro.models.blocks``): pre-norm sequence
 mixer + FFN with residuals.
 
-Ported kinds (the reference's ``_parse`` table):
+Kinds (the reference's ``_parse`` table):
   attn        GQA attention + dense gated MLP
   local       sliding-window attention + dense MLP
   attn_moe    GQA attention + MoE
   local_moe   windowed attention + MoE
   mla         MLA attention + dense MLP      mla_moe     MLA + MoE
   mla_local   windowed MLA + dense MLP       mla_local_moe
+  rec         RG-LRU recurrent block + dense MLP
+  mamba       Mamba-2 mixer (no separate FFN, as in the reference)
 
-The RG-LRU and Mamba-2 kinds raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  ``block_apply`` returns (x, aux, wire):
-aux is the MoE load-balance loss (0 elsewhere), wire the measured coded
-bits of the block's compressed MoE dispatch (non-zero only under
-``moe_impl="a2a"`` on a mesh).  An MoE block's cache is ``{"mixer":
-..., "moe_counts": (B, E) int32}`` (the mixer's: a KV cache, or MLA's
-latent cache): the counts carry the streaming-capacity state, so decode
-drops exactly the slots the full forward drops.
+``block_apply`` returns (x, aux, wire): aux is the MoE load-balance
+loss (0 elsewhere), wire the measured coded bits of the block's
+compressed MoE dispatch (non-zero only under ``moe_impl="a2a"`` on a
+mesh).  An MoE block's cache is ``{"mixer": ..., "moe_counts": (B, E)
+int32}`` (the mixer's: a KV cache, or MLA's latent cache): the counts
+carry the streaming-capacity state, so decode drops exactly the slots
+the full forward drops.  The recurrent kinds' caches are their fixed-size
+states (``{h, conv}``, ``{state, conv_x, conv_B, conv_C}``), with no
+positions.
 """
 from __future__ import annotations
 
@@ -31,19 +34,25 @@ from .layers import (attn_apply, attn_cache_init, attn_decode, attn_init,
 from .mla import mla_apply, mla_cache_init, mla_decode, mla_init, mla_prefill
 from .moe import (moe_apply, moe_apply_a2a_block, moe_apply_eshard,
                   moe_decode, moe_init, moe_prefill)
+from .rglru import (rglru_apply, rglru_cache_init, rglru_decode, rglru_init,
+                    rglru_prefill)
+from .ssm import (mamba_apply, mamba_cache_init, mamba_decode, mamba_init,
+                  mamba_prefill)
 
 __all__ = ["BLOCK_KINDS", "block_init", "block_apply", "block_cache_init",
            "block_decode", "block_prefill"]
 
-# kind → (mixer, windowed, ffn), the reference's table for what is ported
+# kind → (mixer, windowed, ffn), the reference's table
 _TABLE = {"attn": ("gqa", False, "dense"), "local": ("gqa", True, "dense"),
           "attn_moe": ("gqa", False, "moe"),
           "local_moe": ("gqa", True, "moe"),
           "mla": ("mla", False, "dense"), "mla_moe": ("mla", False, "moe"),
           "mla_local": ("mla", True, "dense"),
-          "mla_local_moe": ("mla", True, "moe")}
+          "mla_local_moe": ("mla", True, "moe"),
+          "rec": ("rec", False, "dense"),
+          "mamba": ("mamba", False, "none")}
 BLOCK_KINDS = tuple(_TABLE)
-_LATER = {"rec": "RG-LRU (rglru.py)", "mamba": "Mamba-2 (ssm.py)"}
+
 
 class _Mixer(NamedTuple):
     init: Callable
@@ -51,36 +60,41 @@ class _Mixer(NamedTuple):
     cache_init: Callable
     decode: Callable
     prefill: Callable
+    windowed: bool = False          # takes ``window=`` (the attentions)
 
 
 _MIXERS = {"gqa": _Mixer(attn_init, attn_apply, attn_cache_init,
-                         attn_decode, attn_prefill),
+                         attn_decode, attn_prefill, True),
            "mla": _Mixer(mla_init, mla_apply, mla_cache_init, mla_decode,
-                         mla_prefill)}
+                         mla_prefill, True),
+           "rec": _Mixer(rglru_init, rglru_apply, rglru_cache_init,
+                         rglru_decode, rglru_prefill),
+           "mamba": _Mixer(mamba_init, mamba_apply, mamba_cache_init,
+                           mamba_decode, mamba_prefill)}
 _MOE_IMPLS = ("scatter", "eshard", "a2a")
 
 
 def _parse(kind: str) -> Tuple[str, bool, str]:
-    if kind in _TABLE:
-        return _TABLE[kind]
-    if kind in _LATER:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md A8: "
-            f"{_LATER[kind]})")
-    raise ValueError(f"unknown block kind {kind!r}")
+    if kind not in _TABLE:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return _TABLE[kind]
 
 
-def _window(cfg: ModelConfig, windowed: bool) -> int:
-    return cfg.sliding_window if windowed else 0
+def _window(cfg: ModelConfig, mixer: str, windowed: bool) -> Dict[str, int]:
+    """The mixer's ``window=`` keyword (none for the recurrent ones)."""
+    if not _MIXERS[mixer].windowed:
+        return {}
+    return {"window": cfg.sliding_window if windowed else 0}
 
 
 def block_init(kind: str, cfg: ModelConfig, generator, device):
     mixer, _, ffn = _parse(kind)
     p: Dict[str, Any] = {"norm_mix": rmsnorm_init(cfg, device)}
     p["mixer"] = _MIXERS[mixer].init(cfg, generator, device)
-    p["norm_ffn"] = rmsnorm_init(cfg, device)
-    p["ffn"] = (moe_init(cfg, generator, device) if ffn == "moe"
-                else mlp_init(cfg, generator, device))
+    if ffn != "none":
+        p["norm_ffn"] = rmsnorm_init(cfg, device)
+        p["ffn"] = (moe_init(cfg, generator, device) if ffn == "moe"
+                    else mlp_init(cfg, generator, device))
     return p
 
 
@@ -90,9 +104,11 @@ def block_apply(kind: str, params, x, cfg: ModelConfig, mesh=None):
     mixer, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
     x = x + _MIXERS[mixer].apply(params["mixer"], h, cfg,
-                                 window=_window(cfg, windowed))
+                                 **_window(cfg, mixer, windowed))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     wire = torch.zeros((), dtype=torch.float64, device=x.device)
+    if ffn == "none":
+        return x, aux, wire
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
     if ffn == "moe":
         if cfg.moe_impl not in _MOE_IMPLS:
@@ -113,8 +129,8 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                      device, dtype=None):
     mixer, windowed, ffn = _parse(kind)
     cache = _MIXERS[mixer].cache_init(cfg, batch, cache_len, device,
-                                      window=_window(cfg, windowed),
-                                      dtype=dtype)
+                                      dtype=dtype,
+                                      **_window(cfg, mixer, windowed))
     if ffn == "moe":
         return {"mixer": cache,
                 "moe_counts": torch.zeros((batch, cfg.n_experts),
@@ -123,14 +139,16 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):
-    """One token through the block; the cache (the KV slots and an MoE
-    block's counts) is updated in place."""
+    """One token through the block; the cache (the KV slots or the
+    recurrent state, and an MoE block's counts) is updated in place."""
     mixer, windowed, ffn = _parse(kind)
     mixer_cache = cache["mixer"] if ffn == "moe" else cache
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
     h, _ = _MIXERS[mixer].decode(params["mixer"], h, mixer_cache, pos, cfg,
-                                 window=_window(cfg, windowed))
+                                 **_window(cfg, mixer, windowed))
     x = x + h
+    if ffn == "none":
+        return x, cache
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
     if ffn == "moe":
         h, _ = moe_decode(params["ffn"], h, cache["moe_counts"], pos, cfg)
@@ -144,8 +162,10 @@ def block_prefill(kind: str, params, x, cfg: ModelConfig, cache_len: int):
     mixer, windowed, ffn = _parse(kind)
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)
     h, cache = _MIXERS[mixer].prefill(params["mixer"], h, cfg, cache_len,
-                                      window=_window(cfg, windowed))
+                                      **_window(cfg, mixer, windowed))
     x = x + h
+    if ffn == "none":
+        return x, cache
     h = rmsnorm_apply(params["norm_ffn"], x, cfg.norm_eps)
     if ffn == "moe":
         h, _, counts = moe_prefill(params["ffn"], h, cfg)

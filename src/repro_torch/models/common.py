@@ -1,6 +1,6 @@
 """Model configuration and parameter helpers (port of
 ``repro.models.common``, the fields the ported block kinds read: dense
-attention, MLA and MoE).
+attention, MLA, MoE, Mamba-2 and RG-LRU).
 
 A config's layer stack is a tuple of ``BlockGroup``s — (pattern of block
 kinds, repeat count).  Parameters keep the reference's layout: every
@@ -33,8 +33,8 @@ class BlockGroup:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense | moe (ported); ssm | hybrid |
-                                   # audio | vlm wait for their kinds
+    arch_type: str                 # dense | moe | ssm | hybrid (ported);
+                                   # audio | vlm wait for prefix embeddings
     d_model: int
     vocab_size: int
     blocks: Tuple[BlockGroup, ...]
@@ -73,6 +73,16 @@ class ModelConfig:
     qk_nope_head_dim: int = 0
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
+    # ---- ssm (mamba2) ----
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 128           # SSD chunk length
+    # ---- rg-lru (recurrentgemma) ----
+    lru_width: int = 0
+    conv_width: int = 4
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
@@ -139,6 +149,9 @@ class ModelConfig:
             qk_nope_head_dim=32 if self.qk_nope_head_dim else 0,
             qk_rope_head_dim=16 if self.qk_rope_head_dim else 0,
             v_head_dim=32 if self.v_head_dim else 0,
+            ssm_state=min(self.ssm_state, 32) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else 64,
+            lru_width=d if self.lru_width else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
             remat="none",

@@ -33,10 +33,13 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 def from_jax_params(np_tree, cfg: ModelConfig, device=None):
     """The reference's ``model_init`` tree (NumPy leaves) as the port's
     parameters on ``device`` (CUDA unless named), MoE leaves (the float32
-    router, the stacked experts, the shared expert) and MLA leaves (the
-    low-rank projections and their norms) included.  Checks the
-    embedding, the groups, each MoE block's expert count and each MLA
-    block's latent width (``wkv_a``: kv_lora + rope) against ``cfg``."""
+    router, the stacked experts, the shared expert), MLA leaves (the
+    low-rank projections and their norms) and the recurrent blocks'
+    leaves (a ``mamba`` block holds no FFN) included.  Checks the
+    embedding, the groups, each MoE block's expert count, each MLA
+    block's latent width (``wkv_a``: kv_lora + rope), each ``rec``
+    block's width (``w_in``: (d, ``lru_width`` or d)) and each ``mamba``
+    block's heads (``wx``: (d, H, P)) against ``cfg``."""
     dev = resolve_device(device)
     params = tree_map(lambda a: tensor_from_numpy(a, dev), np_tree)
     table = params["embed"]["table"]
@@ -54,6 +57,19 @@ def from_jax_params(np_tree, cfg: ModelConfig, device=None):
                 if w != want:
                     raise ValueError(f"{kind} block's wkv_a is {w} wide, "
                                      f"config has kv_lora + rope = {want}")
+            if kind == "rec":
+                got = tuple(sub["mixer"]["w_in"].shape[-2:])
+                want = (cfg.d_model, cfg.lru_width or cfg.d_model)
+                if got != want:
+                    raise ValueError(f"rec block's w_in is {got}, config "
+                                     f"has (d, lru_width) = {want}")
+            if kind == "mamba":
+                got = tuple(sub["mixer"]["wx"].shape[-3:])
+                want = (cfg.d_model, cfg.ssm_expand * cfg.d_model
+                        // cfg.ssm_head_dim, cfg.ssm_head_dim)
+                if got != want:
+                    raise ValueError(f"mamba block's wx is {got}, config "
+                                     f"has (d, heads, head_dim) = {want}")
             if "moe" in kind:
                 e = sub["ffn"]["router"].shape[-1]
                 if e != cfg.n_experts:

@@ -16,6 +16,7 @@ cache write casts through ``cache_cast``, XLA's rule, so a
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -217,6 +218,23 @@ def mlp_apply(params, x, cfg: ModelConfig):
     act = (F.silu(gate) if cfg.ffn_activation == "silu"
            else F.gelu(gate, approximate="tanh"))
     return (act * (x @ params["w_up"])) @ params["w_down"]
+
+
+# ------------------------------------------- activations, XLA's roundings
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form) op by op in x's dtype, its
+    constants rounded to that dtype first: in bf16 the bits XLA gives the
+    reference's formula, where ``F.gelu`` rounds once (and differs in the
+    last bit on ~40 % of entries)."""
+    c, k = (torch.tensor(v, dtype=x.dtype).item()
+            for v in ((2.0 / math.pi) ** 0.5, 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as x · 1 / (1 + exp(−x)), op by op in x's dtype:
+    XLA's bits in bf16, where ``F.silu`` rounds once."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 # ------------------------------------------------------------ embeddings

@@ -6,7 +6,8 @@ Parameters and caches keep the reference's tree: ``{"embed",
 "groups", "final_norm"}`` with one tuple of stacked sub-block trees per
 ``BlockGroup`` (leading ``(repeats,)`` axis); the layers run as a Python
 loop over that axis.  Caches stack the same way (an MoE block's with
-its routing counts), and ``decode_step`` updates them in place.
+its routing counts; a recurrent block's fixed-size state and conv tail,
+with no positions), and ``decode_step`` updates them in place.
 """
 from __future__ import annotations
 
@@ -126,7 +127,8 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                 dtype=None):
-    """Empty caches (pos = -1), stacked per group-sub like the params."""
+    """Empty caches (KV slots at pos = -1, recurrent states at 0),
+    stacked per group-sub like the params."""
     dev = resolve_device(device)
     return tuple(
         tuple(tree_stack([block_cache_init(kind, cfg, batch, cache_len, dev,

@@ -26,10 +26,12 @@ reports ``moe_wire_raw_bits``, the analytic raw bits of its expert
 dispatch and combine on an ``ep_degree``-way all-to-all (the decode's
 experts run on this device; ``models.moe.moe_apply_a2a`` is the coded
 wire itself).  MLA models serve from their latent caches
-(``models.mla``); under ``kv_mode="coded"`` the ``CodedKVStore`` codes
-only ``{k, v, pos}`` nodes, so a latent cache stays raw, as in the
-reference.  Prefix embeddings (VLM and audio) are not ported yet and
-raise ``NotImplementedError`` (ROADMAP.md A8).
+(``models.mla``), the recurrent kinds from their fixed-size states
+(``models.rglru``, ``models.ssm``); under ``kv_mode="coded"`` the
+``CodedKVStore`` codes only ``{k, v, pos}`` nodes, so a latent cache or
+a recurrent state stays raw, as in the reference.  Prefix embeddings
+(VLM and audio) are not ported yet and raise ``NotImplementedError``
+(ROADMAP.md A8).
 """
 from __future__ import annotations
 

@@ -156,12 +156,21 @@ def test_engine_refuses_unported_options():
     eng = Engine(tparams, tcfg, sc, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
+    # the recurrent kinds serve; an unknown kind refuses
     for kind in ("rec", "mamba"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            model_init(ModelConfig(name="m", arch_type="x", d_model=8,
-                                   vocab_size=8,
-                                   blocks=(BlockGroup((kind,), 1),)),
-                       torch.Generator(), device="cpu")
+        cfg = ModelConfig(name="m", arch_type="x", d_model=64,
+                          vocab_size=32, blocks=(BlockGroup((kind,), 1),),
+                          d_ff=64, lru_width=64, ssm_state=8,
+                          ssm_head_dim=32)
+        p = model_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        toks, _ = Engine(p, cfg, sc, device="cpu").generate(
+            np.zeros((2, 3), np.int64), 3)
+        assert toks.shape == (2, 3)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        model_init(ModelConfig(name="m", arch_type="x", d_model=8,
+                               vocab_size=8,
+                               blocks=(BlockGroup(("ssm4",), 1),)),
+                   torch.Generator(), device="cpu")
 
 
 def test_engine_moe_wire_raw_bits_equal_reference():

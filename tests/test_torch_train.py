@@ -382,14 +382,24 @@ def test_refusals_match_reference():
         with pytest.raises(ValueError) as got:
             tstep.make_train_step(TCFG, adamw.AdamWConfig(), **kw)
         assert str(got.value) == str(want.value)
-    # a block kind still to port refuses inside the train forward
-    mamba = dataclasses.replace(TCFG, blocks=(BlockGroup(("mamba",), 1),))
+    # the recurrent kinds train (a mamba block has no FFN); an unknown
+    # kind refuses inside the train forward
+    batch = {"tokens": torch.zeros(1, 2, dtype=torch.int64),
+             "labels": torch.zeros(1, 2, dtype=torch.int64)}
+    mamba = dataclasses.replace(TCFG, blocks=(BlockGroup(("mamba",), 1),),
+                                ssm_state=16, ssm_head_dim=32)
+    params = model_init(mamba, torch.Generator().manual_seed(0),
+                        device="cpu")
+    assert set(params["groups"][0][0]) == {"norm_mix", "mixer"}
+    loss, _, grads = tstep.loss_and_grads(params, batch, mamba)
+    assert bool(torch.isfinite(loss))
+    assert [g.shape for g in tree_leaves(grads)] == [
+        p.shape for p in tree_leaves(params)]
     bare = {"embed": {"table": torch.zeros(TCFG.vocab_size, TCFG.d_model)},
             "groups": (({},),)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        tstep.loss_and_grads(bare, {"tokens": torch.zeros(
-            1, 2, dtype=torch.int64), "labels": torch.zeros(
-            1, 2, dtype=torch.int64)}, mamba)
+    odd = dataclasses.replace(TCFG, blocks=(BlockGroup(("ssm4",), 1),))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        tstep.loss_and_grads(bare, batch, odd)
     with pytest.raises(NotImplementedError, match="A8"):
         forward_train({}, {"tokens": torch.zeros(1, 2, dtype=torch.int64),
                            "prefix_embeds": torch.zeros(1, 1, 8)}, TCFG)
