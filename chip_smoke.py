@@ -202,8 +202,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    prefill's logits), the engine without books, and the engine with
    ``kv_mode="coded"`` (Huffman, KV chunk 512: the 12 local layers' K/V
    coded, the 26 ``rec`` layers' ``{h, conv}`` passed through raw).
-   Checked: every wire step lossless with B2 bits = B5 . lengths, the
-   tokens of the engine without books; the coded engine's tokens and
+   Checked: every wire step lossless with B2 bits = B5 . lengths, B1,
+   B2 and B4 on one step's logits planes equal to their plain versions
+   on CPU copies (after the count), the tokens of the engine without
+   books; the coded engine's tokens and
    every step's logits equal to the raw engine's bit for bit, the raw
    state counted alike on both sides of the KV ledger (its coded/raw
    printed); a replay of the engine's steps against one prefill of the
@@ -232,11 +234,58 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``ssd_chunked`` on its real (x, dt, B, C) at 4 x 2048 (16 chunks)
    against the sequential recurrence in float32 on the card within
    ``SSD_TOL`` (y and the final state);
-13. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+13. VLM: ``internvl2-26b`` at full width and full depth (48 ``attn``
+   layers, d 6144, 48 heads GQA kv 8, d_ff 16 384, vocab 92 553, untied
+   head; 19.861 B parameters, 39.72 GB), on a card the earlier phases
+   left empty, its init peak printed (``models.model_init`` writes each
+   layer into its stack: the three 9.66 GB FFN stacks are never held
+   twice) (``launches_by_path["internvl"]``): ``Engine`` serving 4 x 64
+   prompts after seeded 4 x 1024 x 6144 float32 patch embeddings
+   (``generate(prefix_embeds=)``) for 32 tokens through the bitexact wire
+   (``multisym``, books from a warm-up prefill's logits; the logits
+   plane, 4 x 92 553 symbols, is 181 chunks, the last 1572), the engine
+   without books, and ``kv_mode="coded"`` (KV chunk 512, 1120-slot
+   caches, the first ingest the prefix's and the prompt's 1088 slots).
+   Checked as phase 11: every step lossless with B2 bits = B5 . lengths,
+   B1, B2 and B4 on one step's planes (the partial last chunk included)
+   equal to their plain versions, the tokens of the engine without books, the coded KV engine's tokens
+   and every step's logits equal to the raw engine's bit for bit, and a
+   replay of the steps against one prefill of the prefix and the whole
+   sequence within ``DECODE_TOL``.  Timed: the prefill of 4 x (1024 +
+   64) (events, device), a decode step (host median, device ms; its
+   bound the 38.6 GB of weights a step reads, the head included and the
+   table's 4 rows not), peak memory; then the ``reduced()`` step (a
+   16-patch prefix) on the card and the CPU in bf16, held to
+   ``STEP_TOL``;
+14. audio: ``hubert-xlarge`` at full width and full depth (48
+   bidirectional ``attn`` layers over frame embeddings, d 1280, vocab
+   504; 1.2597 B parameters): one forward of seeded 4 x 1024 frames, its
+   logits planes (2 064 384 symbols, 1008 chunks each) through
+   ``encode_chunked`` and ``decode_chunked`` (``multisym``, books from a
+   warm-up forward; ``launches_by_path["hubert"]``): lossless, B2 bits =
+   B5 . lengths, B1, B2 and B4 on each plane and the path's own streams
+   and decodes equal to the plain versions on CPU copies; then phase 7's path and checks at batch 4 x 1024,
+   ``grad_accum`` 2 (its config's), a refresh check every 4 steps
+   (``launches_by_path["hubert_train"]``), the reduced step held in
+   bf16;
+15. statistics: ``gemma2-2b``'s 18-layer ``w_gate`` stack (18 x 2048 x
+   16 384 bf16, seed 0, drawn as phase 4 draws it) at the paper's
+   geometry, 18 x 64 = 1152 shards (``launches_by_path["stats"]``):
+   ``core.stats.shard_histograms`` (B5 a shard and plane) equal, on both
+   planes, to a plain count of the same split made another way;
+   ``per_shard_report``'s means printed (ideal, per-shard Huffman, fixed
+   codebook; random weights, report only); ``three_stage_encode`` (B5
+   scan, host build, B1 -> B2 -> merge) and ``single_stage_encode`` with
+   its book on ``w_gate[0]``'s hi plane (33.5 M symbols): equal words and
+   bits, bits = B5 . lengths, the stage seconds; and the seven symbol
+   schemes' planes of 2^20 seeded values (NaN, inf, 470 among them) equal
+   on the card and the CPU;
+16. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
-   ...}`` and one ``{"recurrent": ...}`` record, one ``{"kernels":
-   [...]}`` record (B1-B8, with ``launches_by_path`` for every path),
-   then ``{"ok": true, "device": {...}}``.
+   ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}`` and one
+   ``{"stats": ...}`` record, one ``{"kernels": [...]}`` record (B1-B8,
+   with ``launches_by_path`` for every path), then ``{"ok": true,
+   "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -983,24 +1032,7 @@ def main() -> int:
     del logits, planes
     trained, train_launches = train_phase(torch, dev, params, cfg, card,
                                           build)
-    p = trained["profile"]
-    print(f"train step: {trained['step_ms_median']:.1f} ms host-clock "
-          f"median of {TRAIN_STEPS}, {trained['tokens_per_s']:.0f} tokens/s; "
-          f"device {p['device_busy_ms_per_step']:.2f} ms a step, idle share "
-          f"{p['idle_share']:.4f} (profiler, {p['steps']} steps), B5 "
-          f"{trained['b5_device_ms_per_step']:.4f} ms a step "
-          f"({100 * trained['b5_share_of_device']:.2f} % of device); "
-          f"gradient coded/raw {trained['grad_coded_over_raw_bootstrap']:.4f}"
-          f" (bootstrap books) -> "
-          f"{trained['grad_coded_over_raw_refreshed']:.4f} (epoch "
-          f"{trained['refreshed_epoch']}); refresh host s "
-          f"{[round(r['seconds'], 4) for r in trained['refreshes']]}; "
-          f"peak memory {trained['peak_memory_gb']:.2f} GB; host syncs "
-          f"in a step {trained['host_syncs_a_step']} [{card}]")
-    for k, r in trained["parts"].items():
-        print(f"  train step part {k}: {r['wall_ms_per_step']:.2f} ms wall, "
-              f"{r['device_busy_ms_per_step']:.2f} ms device, idle share "
-              f"{r['idle_share']:.4f} (profiler, 2 calls) [{card}]")
+    print_train(trained, card)
     torch.cuda.empty_cache()
 
     # --------------------------------- 8. lifecycle: drift check, refresh
@@ -1016,7 +1048,8 @@ def main() -> int:
 
     # ---------------- 9. MoE: llama4-scout-17b-a16e at full width (4 of 48)
     phase("MoE: llama4-scout-17b-a16e at full width (4 of 48 layers)")
-    del params                              # the card holds llama4 alone
+    # the card holds llama4 alone: the gemma2-2b engine holds its weights
+    del params, eng, caches, full, one
     torch.cuda.empty_cache()
     moe_rec, moe_launches = moe_phase(torch, dev, card, build)
     torch.cuda.empty_cache()
@@ -1034,7 +1067,22 @@ def main() -> int:
             torch, dev, card, build, arch)
         torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ 13. records
+    # -------- 13. internvl2-26b served after a 1024-patch prefix (full)
+    phase("13. internvl2-26b at full width and depth (a 1024-patch prefix)")
+    vlm_rec, vlm_launches = internvl_phase(torch, dev, card, build)
+    torch.cuda.empty_cache()
+
+    # ------------- 14. hubert-xlarge coded and trained (full width, depth)
+    phase("14. hubert-xlarge at full width and depth (frame embeddings)")
+    audio_rec, audio_launches, audio_train_launches = hubert_phase(
+        torch, dev, card, build)
+    torch.cuda.empty_cache()
+
+    # ------------- 15. the paper's per-shard statistics and its encoders
+    phase("15. per-shard statistics (18 x 64 shards) and the two encoders")
+    stats_rec, stats_launches = stats_phase(torch, dev, card, build)
+
+    # ------------------------------------------------------ 16. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1047,7 +1095,9 @@ def main() -> int:
     paths = {"wire_serve": launches, "coded_at_rest": coded_launches,
              "ring": ring_launches, "train": train_launches,
              "lifecycle": life_launches, "moe": moe_launches,
-             "deepseek": ds_launches, **rec_launches}
+             "deepseek": ds_launches, **rec_launches,
+             "internvl": vlm_launches, "hubert": audio_launches,
+             "hubert_train": audio_train_launches, "stats": stats_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -1094,6 +1144,9 @@ def main() -> int:
     print(json.dumps({"card": card, "moe": moe_rec}))
     print(json.dumps({"card": card, "deepseek": ds_rec}))
     print(json.dumps({"card": card, "recurrent": recurrent}))
+    print(json.dumps({"card": card, "prefix": {"internvl2-26b": vlm_rec,
+                                               "hubert-xlarge": audio_rec}}))
+    print(json.dumps({"card": card, "stats": stats_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1896,6 +1949,48 @@ def held_to_plain(torch, LoopbackAxis, name, fn, x, sizes):
     return gy, len(gsent)
 
 
+def codec_held_to_plain(torch, name, sym, book, chunk, stream=None,
+                        decoded=None):
+    """B1, B2 and B4 on the card on one plane ``sym`` (outside any
+    counted run), against their plain versions on CPU copies: the codes,
+    lengths, total bits, words, ``block_bits`` and decoded symbols equal
+    bit for bit, and the decode lossless.  Where the main path's
+    ``stream`` (``encode_chunked``) and ``decoded`` (``decode_chunked``)
+    are given, they are held to the plain versions too."""
+    from repro_torch.core.encoder import chunk_counts_for, concat_chunks
+    from repro_torch.kernels import bitpack, decode, encode
+
+    cc = chunk_counts_for(sym.numel(), chunk)
+    out = []
+    for d, b1, b2, b4 in (
+            (sym.device, encode.encode_lookup, bitpack.pack_blocks,
+             decode.decode_chunks_multisym),
+            (torch.device("cpu"), encode.encode_lookup_plain,
+             bitpack.pack_blocks_plain, decode.decode_chunks_multisym_plain)):
+        (lut,) = book.device_tables("lut", d)
+        k1 = b1(sym.to(d), lut)
+        k2 = b2(k1[0], k1[1], chunk=chunk)
+        k4 = b4(k2[0], torch.from_numpy(cc).to(d),
+                *book.device_tables("multisym", d),
+                *book.device_tables("canonical", d), chunk=chunk)
+        out.append(tuple(k1) + tuple(k2) + (concat_chunks(k4, cc),))
+    got, want = out
+    for what, g, w in zip(("codes", "lengths", "total bits", "words",
+                           "block_bits", "decoded"), got, want):
+        need(compare(torch, (g.cpu(),), (w,))[0] == 0 and g.shape == w.shape,
+             f"{name}: the card's {what} differ from the plain versions'")
+    need(torch.equal(want[-1], sym.cpu()), f"{name}: the plain versions do "
+         f"not round-trip the plane")
+    if stream is not None:
+        need(torch.equal(stream.block_words.cpu(), want[3]) and
+             torch.equal(stream.block_bits.cpu(), want[4]),
+             f"{name}: the main path's stream differs from the plain "
+             f"versions'")
+    if decoded is not None:
+        need(torch.equal(decoded.cpu(), want[-1]), f"{name}: the main "
+             f"path's decode differs from the plain versions'")
+
+
 def bits_of(torch, t):
     """A tensor's bit pattern as an integer tensor (for bitwise equality)."""
     ints = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
@@ -2285,20 +2380,21 @@ def steps_profile(torch, fn, steps: int):
                      short.items(), key=lambda kv: -kv[1])[:10])}
 
 
-def train_phase(torch, dev, params, cfg, card, build):
-    """Phase 7: gemma2-2b trained at full width on the card through
-    ``launch.train.train`` (see the module docstring).  Returns the
-    record and the main path's launch counts."""
+def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, refresh=TRAIN_REFRESH, grad_accum=1):
+    """Phases 7 and 14: ``cfg`` (gemma2-2b, hubert-xlarge) trained at full
+    width on the card through ``launch.train.train`` (see the module
+    docstring), ``batch`` x ``seq``, a refresh check every ``refresh``
+    steps.  The reduced step, card vs CPU, is held in bf16.  Returns the record and the main path's launch counts."""
     from repro_torch.core.symbols import bf16_planes
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.kernels.histogram import histogram256_plain
     from repro_torch.launch.train import train
-    from repro_torch.models import model_init, param_count
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models import param_count
+    from repro_torch.models.common import tree_leaves
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
-    from repro_torch.train.step import (STEP_TOL, grad_payload_stats,
-                                        loss_and_grads, make_train_step,
-                                        step_deviation, train_state_init)
+    from repro_torch.train.step import (grad_payload_stats, loss_and_grads,
+                                        make_train_step)
     from repro_torch.comm.compression import histogram256
 
     t_phase = time.perf_counter()
@@ -2308,15 +2404,14 @@ def train_phase(torch, dev, params, cfg, card, build):
     # ---- the main path: launch counts reset just before, read after
     torch.cuda.synchronize()
     build.reset_launches()
-    run = train(cfg, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
-                seq_len=TRAIN_SEQ, lr=TRAIN_LR, compress=True,
-                refresh_every=TRAIN_REFRESH, seed=SEED, device=dev,
-                params=params)
+    run = train(cfg, steps=TRAIN_STEPS, batch_size=batch, seq_len=seq,
+                lr=TRAIN_LR, grad_accum=grad_accum, compress=True,
+                refresh_every=refresh, seed=SEED, device=dev, params=params)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     mgr, steps, refreshes = run["lifecycle"], run["steps"], run["refreshes"]
-    print(f"train main path: {run['seconds']:.1f} s, launches {launches} "
-          f"[{card}]")
+    print(f"{cfg.name} train main path: {run['seconds']:.1f} s, launches "
+          f"{launches} [{card}]")
 
     need(all(math.isfinite(s["loss"]) for s in steps),
          f"train: a loss is not finite: {[s['loss'] for s in steps]}")
@@ -2338,9 +2433,9 @@ def train_phase(torch, dev, params, cfg, card, build):
     # 10.22 in a first run on the card)
     state = run["state"]
     spec_new = mgr.spec("grad", "bf16")
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(SyntheticDataset(
-        cfg, DataConfig(TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 1))).items()}
-    _, _, grads = loss_and_grads(state.params, batch, cfg)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in next(SyntheticDataset(
+        cfg, DataConfig(batch, seq, seed=SEED + 1))).items()}
+    _, _, grads = loss_and_grads(state.params, data, cfg)
 
     # ---- every leaf's B5 histograms against the plain histogram, and
     # the probe's coded bits against hist . lengths in int64
@@ -2374,7 +2469,7 @@ def train_phase(torch, dev, params, cfg, card, build):
     box = {"state": state}
 
     def one():
-        box["state"], m = extra(box["state"], batch)
+        box["state"], m = extra(box["state"], data)
         return float(m["loss"])
 
     losses = [one()]
@@ -2385,10 +2480,12 @@ def train_phase(torch, dev, params, cfg, card, build):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            box["state"], m = extra(box["state"], batch)
+            box["state"], m = extra(box["state"], data)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    step_syncs = sum("synchronizing" in str(w.message) for w in caught)
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchronizing" in str(w.message)]
+    step_syncs = len(syncs)
     losses.append(float(m["loss"]))
     # the step's parts on the last state, each under the profiler (2
     # calls): forward + backward, the probe, the optimizer (lr 0).  The
@@ -2396,10 +2493,10 @@ def train_phase(torch, dev, params, cfg, card, build):
     # on the last state, which nothing reads after this; cloned moments
     # would add 20 GB at this width
     st = box["state"]
-    g = loss_and_grads(st.params, batch, cfg)[2]
+    g = loss_and_grads(st.params, data, cfg)[2]
     parts = {
         "forward_backward": steps_profile(torch, lambda: loss_and_grads(
-            st.params, batch, cfg)[0], 2)[1],
+            st.params, data, cfg)[0], 2)[1],
         "grad_probe": steps_profile(torch, lambda: grad_payload_stats(
             g, spec_new)["coded_bits"], 2)[1],
         "adamw": steps_profile(torch, lambda: adamw_update(
@@ -2413,52 +2510,32 @@ def train_phase(torch, dev, params, cfg, card, build):
 
     # ---- the reduced config: one step on the card and one on the CPU's
     # plain path from the same params and batch, within STEP_TOL
-    rcfg = cfg.reduced()
-    rparams = model_init(rcfg, torch.Generator().manual_seed(SEED),
-                         device="cpu")
-    rbatch = next(SyntheticDataset(rcfg, DataConfig(TRAIN_BATCH, 32,
-                                                    seed=SEED)))
-    step = make_train_step(rcfg, AdamWConfig(lr=TRAIN_LR))
-    out = {}
-    for where in ("cpu", dev):
-        st = train_state_init(tree_map(lambda t: t.to(where), rparams))
-        new, m = step(st, {k: torch.from_numpy(v).to(where)
-                           for k, v in rbatch.items()})
-        out[str(where)] = (tree_map(lambda t: t.cpu(), new.params),
-                           float(m["loss"]), float(m["grad_norm"]))
-    (pc, lc, gc), (pd, ld, gd) = out["cpu"], out[str(dev)]
-    card_vs_cpu = step_deviation({"loss": ld, "grad_norm": gd, "params": pd},
-                                 {"loss": lc, "grad_norm": gc, "params": pc},
-                                 TRAIN_LR)
-    need(all(v <= STEP_TOL[k] for k, v in card_vs_cpu.items()),
-         f"train: reduced step, card vs CPU beyond STEP_TOL: {card_vs_cpu} "
-         f"(loss {ld} / {lc}, grad norm {gd} / {gc})")
+    reduced = reduced_step_card_vs_cpu(torch, dev, cfg.reduced(),
+                                       f"{cfg.name} train", card)
 
     secs = sorted(s["step_seconds"] for s in steps)
     med = secs[len(secs) // 2]
     b5_ms = sum(v for k, v in prof["port_kernels_ms_per_step"].items()
                 if "hist" in k)
     rec = {
-        "model": cfg.name, "params": n_params, "batch": TRAIN_BATCH,
-        "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "refresh_every": TRAIN_REFRESH, "lr": TRAIN_LR,
+        "model": cfg.name, "params": n_params, "batch": batch,
+        "seq_len": seq, "grad_accum": grad_accum, "steps": TRAIN_STEPS,
+        "refresh_every": refresh, "lr": TRAIN_LR,
         "losses": [s["loss"] for s in steps],
         "book_epochs": epochs, "refreshed_epoch": mgr.book_epoch,
         "refreshes": refreshes,
         "n_recompiles": mgr.n_recompiles,
         "step_ms_median": med * 1e3, "step_ms_all": [s * 1e3 for s in secs],
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+        "tokens_per_s": batch * seq / med,
         "profile": prof, "parts": parts, "host_syncs_a_step": step_syncs,
+        "host_sync_sites": syncs,
         "b5_device_ms_per_step": b5_ms,
         "b5_share_of_device": b5_ms / prof["device_busy_ms_per_step"],
         "grad_coded_over_raw_bootstrap": ratio_boot,
         "grad_coded_over_raw_refreshed": ratio_new,
         "repeated_batch_lr": TRAIN_LR / 10, "repeated_batch_losses": losses,
         "peak_memory_gb": peak_gb,
-        "reduced_card_vs_cpu": {"loss": [ld, lc], "grad_norm": [gd, gc],
-                                "deviation": card_vs_cpu,
-                                "limits": {k: STEP_TOL[k]
-                                           for k in card_vs_cpu}},
+        "reduced_card_vs_cpu": reduced,
         "seconds": time.perf_counter() - t_phase,
     }
     return rec, launches
@@ -3715,23 +3792,135 @@ def first_divergence(torch, dev, rcfg) -> dict:
     return out
 
 
+def serve_three_ways(torch, dev, params, cfg, books, prompts, path, card,
+                     build, prefix=None):
+    """The serve path of phases 11-13, launch counts reset just before and
+    read just after: ``Engine`` through the bitexact wire (``multisym``,
+    chunk 2048, ``books``), the engine without books and the coded KV
+    engine (chunk 512), each generating ``NEW`` tokens after ``prompts``
+    (and ``prefix`` embeddings).  Checked: B1, B2, B4, B5 launched; every
+    wire step lossless with B2 bits = B5 . lengths and the logits plane's
+    chunks; the tokens of the engine without books; the coded engine's
+    tokens and every step's logits equal to the raw engine's, bit for
+    bit; B1, B2 and B4 on one decode step's logits planes (181 chunks
+    for internvl, the last partial) against their plain versions, after
+    the count.  Returns the serve record, the tokens, the launch counts
+    and the coded engine."""
+    from repro_torch.comm.compression import CompressionSpec
+    from repro_torch.core.encoder import chunk_counts_for
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.serve import Engine, ServeConfig
+
+    spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                      mode="bitexact", transport="chunked",
+                                      chunk=CHUNK, decode_backend="multisym")
+    kv_spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
+                                         chunk=KV_CHUNK)
+    sc = ServeConfig(max_cache_len=PROMPT + NEW + (
+        0 if prefix is None else prefix.shape[1]))
+    t_path = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    eng = Engine(params, cfg, sc, spec, device=dev)
+    t0 = time.perf_counter()
+    toks, totals = eng.generate(prompts, NEW, prefix_embeds=prefix)
+    serve_s = time.perf_counter() - t0
+    plain = Engine(params, cfg, sc, device=dev)
+    plain_logits = record_logits(plain)
+    toks_plain, _ = plain.generate(prompts, NEW, prefix_embeds=prefix)
+    coded = Engine(params, cfg, sc, kv_spec, kv_mode="coded", device=dev)
+    coded_logits = record_logits(coded)
+    t0 = time.perf_counter()
+    toks_coded, ctot = coded.generate(prompts, NEW, prefix_embeds=prefix)
+    coded_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{path} path: {time.perf_counter() - t_path:.1f} s, launches "
+          f"{launches} [{card}]")
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym"):
+        need(launches[k] > 0, f"{path}: kernel {k} was not launched")
+
+    # ---- the wire: lossless, B2 = B5 . lengths, the plain engine's tokens
+    counts = chunk_counts_for(BATCH * cfg.vocab_size, CHUNK)
+    steps = eng.step_metrics
+    need(toks.shape == (BATCH, NEW), f"{path}: tokens {toks.shape}")
+    need(len(steps) == NEW - 1, f"{path}: {len(steps)} decode steps")
+    need(totals["act_decode_mismatch"] == 0.0,
+         f"{path} serve: {totals['act_decode_mismatch']} mismatches")
+    for i, m in enumerate(steps):
+        need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
+             f"{path} serve step {i}: B2 bits {m['act_decoded_bits']} != "
+             f"histogram . lengths {m['act_coded_bits']}")
+        need(m["act_decode_chunks"] == 2 * len(counts),
+             f"{path} serve step {i}: {m['act_decode_chunks']} chunks")
+    need((toks == toks_plain).all(), f"{path} serve: the tokens differ "
+         f"from the engine's without books")
+    # ---- coded KV: the raw engine's tokens and logits, bit for bit
+    need((toks_coded == toks_plain).all(), f"{path} coded KV: the tokens "
+         f"differ from the raw engine's")
+    need(len(coded_logits) == len(plain_logits) == NEW - 1,
+         f"{path} coded KV: {len(coded_logits)} steps recorded")
+    for i, (a, b) in enumerate(zip(coded_logits, plain_logits)):
+        need(torch.equal(a.view(torch.int16), b.view(torch.int16)),
+             f"{path} coded KV step {i}: logits differ from the raw "
+             f"engine's")
+    # ---- the wire's kernels at this path's plane, against their plain
+    # versions (uncounted launches)
+    t0 = time.perf_counter()
+    for p, sym in SCHEMES["bf16"].to_symbols(plain_logits[0]).items():
+        codec_held_to_plain(torch, f"{path} wire {p}", sym, books[p], CHUNK)
+    held_s = time.perf_counter() - t0
+
+    def median_ms(e):
+        s = sorted(m["step_seconds"] for m in e.step_metrics)
+        return s[len(s) // 2] * 1e3
+
+    kv_ratio = ctot["kv_hbm_coded_bits"] / ctot["kv_hbm_raw_bits"]
+    serve = {"new_tokens": NEW, "generate_s": serve_s,
+             "coded_kv_generate_s": coded_s,
+             "decode_step_ms_median": median_ms(eng),
+             "decode_step_ms_median_no_wire": median_ms(plain),
+             "coded_kv_decode_step_ms_median": median_ms(coded),
+             "coded_over_raw": totals["act_coded_bits"]
+             / totals["act_raw_bits"],
+             "chunks_a_plane": len(counts),
+             "last_chunk_symbols": int(counts[-1]),
+             "kv_hbm_raw_bits": ctot["kv_hbm_raw_bits"],
+             "kv_hbm_coded_bits": ctot["kv_hbm_coded_bits"],
+             "kv_coded_over_raw": kv_ratio, "peak_memory_gb": serve_peak,
+             "kernels_vs_plain_s": held_s, "launches": launches}
+    print(f"{path} serve: {len(counts)} chunks a plane (the last "
+          f"{int(counts[-1])} symbols), every step lossless, B1/B2/B4 on "
+          f"step 0's planes equal to their plain versions ({held_s:.2f} s); "
+          f"decode step "
+          f"{serve['decode_step_ms_median']:.3f} ms median "
+          f"({serve['decode_step_ms_median_no_wire']:.3f} ms without the "
+          f"wire, {serve['coded_kv_decode_step_ms_median']:.3f} ms with the "
+          f"coded KV), coded/raw {serve['coded_over_raw']:.4f}; coded KV "
+          f"(chunk {KV_CHUNK}): tokens and every step's logits equal to the "
+          f"raw engine's, KV coded/raw {kv_ratio:.4f}; peak memory "
+          f"{serve_peak:.2f} GB [{card}]")
+    return serve, toks, launches, coded
+
+
 def recurrent_phase(torch, dev, card, build, arch: str):
     """Phases 11 and 12: ``arch`` (``recurrentgemma-9b`` or
     ``mamba2-780m``) at full width and full depth (see the module
     docstring).  Returns the record and the path's launch counts."""
     from dataclasses import replace
 
-    from repro_torch.comm.compression import CompressionSpec, histogram256
+    from repro_torch.comm.compression import histogram256
     from repro_torch.configs import get_config
     from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.encoder import chunk_counts_for
     from repro_torch.core.symbols import SCHEMES
     from repro_torch.models import (decode_step, model_init, param_count,
                                     prefill)
     from repro_torch.models import rglru, ssm
     from repro_torch.models.common import tree_index, tree_leaves, tree_map
     from repro_torch.models.layers import embed_apply, rmsnorm_apply, silu
-    from repro_torch.serve import Engine, ServeConfig
 
     path, kind, skey = RECURRENT[arch]
     t_phase = time.perf_counter()
@@ -3773,96 +3962,23 @@ def recurrent_phase(torch, dev, card, build, arch: str):
              for p, s in SCHEMES["bf16"].to_symbols(
                  wl[:, -1].to(torch.bfloat16)).items()}
     del wl
-    spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
-                                      mode="bitexact", transport="chunked",
-                                      chunk=CHUNK, decode_backend="multisym")
-    kv_spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
-                                         chunk=KV_CHUNK)
-    sc = ServeConfig(max_cache_len=PROMPT + NEW)
-
-    # ---- the path: the wire serve, the engine without books, the coded
-    # KV serve; launch counts reset just before, read just after
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    eng = Engine(params, cfg, sc, spec, device=dev)
-    t0 = time.perf_counter()
-    toks, totals = eng.generate(prompts, NEW)
-    serve_s = time.perf_counter() - t0
-    plain = Engine(params, cfg, sc, device=dev)
-    plain_logits = record_logits(plain)
-    toks_plain, _ = plain.generate(prompts, NEW)
-    coded = Engine(params, cfg, sc, kv_spec, kv_mode="coded", device=dev)
-    coded_logits = record_logits(coded)
-    toks_coded, ctot = coded.generate(prompts, NEW)
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    serve_peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{path} path: {time.perf_counter() - t_phase:.1f} s, launches "
-          f"{launches} [{card}]")
-    for k in ("encode_lookup", "pack_blocks", "histogram256",
-              "decode_chunks_multisym"):
-        need(launches[k] > 0, f"{path}: kernel {k} was not launched")
-
-    # ---- the wire: lossless, B2 = B5 . lengths, the plain engine's tokens
-    n_sym = BATCH * cfg.vocab_size
-    counts = chunk_counts_for(n_sym, CHUNK)
-    steps = eng.step_metrics
-    need(toks.shape == (BATCH, NEW), f"{path}: tokens {toks.shape}")
-    need(len(steps) == NEW - 1, f"{path}: {len(steps)} decode steps")
-    need(totals["act_decode_mismatch"] == 0.0,
-         f"{path} serve: {totals['act_decode_mismatch']} mismatches")
-    for i, m in enumerate(steps):
-        need(m["act_decoded_bits"] == m["act_coded_bits"] > 0,
-             f"{path} serve step {i}: B2 bits {m['act_decoded_bits']} != "
-             f"histogram . lengths {m['act_coded_bits']}")
-        need(m["act_decode_chunks"] == 2 * len(counts),
-             f"{path} serve step {i}: {m['act_decode_chunks']} chunks")
-    need((toks == toks_plain).all(), f"{path} serve: the tokens differ "
-         f"from the engine's without books")
-    # ---- coded KV: the raw engine's tokens and logits, bit for bit
-    need((toks_coded == toks_plain).all(), f"{path} coded KV: the tokens "
-         f"differ from the raw engine's")
-    need(len(coded_logits) == len(plain_logits) == NEW - 1,
-         f"{path} coded KV: {len(coded_logits)} steps recorded")
-    for i, (a, b) in enumerate(zip(coded_logits, plain_logits)):
-        need(torch.equal(a.view(torch.int16), b.view(torch.int16)),
-             f"{path} coded KV step {i}: logits differ from the raw "
-             f"engine's")
+    serve, toks, launches, coded = serve_three_ways(
+        torch, dev, params, cfg, books, prompts, path, card, build)
+    # the recurrent states pass through the coded store raw, counted alike
+    # on both sides of its ledger; only a local layer's K/V is coded
     segs = coded._kv._segments
-    kv_ratio = ctot["kv_hbm_coded_bits"] / ctot["kv_hbm_raw_bits"]
     raw_leaf_bits = coded._kv._raw_leaf_bits()
-    need(ctot["kv_hbm_raw_bits"] - ctot["kv_hbm_coded_bits"] == sum(
+    need(serve["kv_hbm_raw_bits"] - serve["kv_hbm_coded_bits"] == sum(
         s.raw_bits - s.coded_bits for v in segs.values() for s in v),
          f"{path} coded KV: the raw state is not counted alike on both "
          f"sides")
     need(bool(segs) == (kind == "rec"), f"{path} coded KV: coded nodes "
          f"{sorted(segs)}")
-    step_s = sorted(m["step_seconds"] for m in steps)
-    bare = sorted(m["step_seconds"] for m in plain.step_metrics)
-    serve = {"new_tokens": NEW, "generate_s": serve_s,
-             "decode_step_ms_median": step_s[len(step_s) // 2] * 1e3,
-             "decode_step_ms_median_no_wire": bare[len(bare) // 2] * 1e3,
-             "coded_over_raw": totals["act_coded_bits"]
-             / totals["act_raw_bits"],
-             "chunks_a_plane": len(counts),
-             "last_chunk_symbols": int(counts[-1]),
-             "kv_coded_nodes": sorted(segs),
-             "kv_hbm_raw_bits": ctot["kv_hbm_raw_bits"],
-             "kv_hbm_coded_bits": ctot["kv_hbm_coded_bits"],
-             "kv_raw_pass_through_bits": raw_leaf_bits,
-             "kv_coded_over_raw": kv_ratio, "peak_memory_gb": serve_peak,
-             "launches": launches}
-    print(f"{path} serve: {len(counts)} chunks a plane (the last "
-          f"{int(counts[-1])} symbols), every step lossless; decode step "
-          f"{serve['decode_step_ms_median']:.3f} ms median "
-          f"({serve['decode_step_ms_median_no_wire']:.3f} ms without the "
-          f"wire), coded/raw {serve['coded_over_raw']:.4f}; coded KV "
-          f"(chunk {KV_CHUNK}): tokens and every step's logits equal to the "
-          f"raw engine's, coded nodes {sorted(segs)}, {raw_leaf_bits} bits "
-          f"passed through raw, KV coded/raw {kv_ratio:.4f}; peak memory "
-          f"{serve_peak:.2f} GB [{card}]")
-    del eng, plain, coded, plain_logits, coded_logits
+    serve.update(kv_coded_nodes=sorted(segs),
+                 kv_raw_pass_through_bits=raw_leaf_bits)
+    print(f"{path} coded KV: coded nodes {sorted(segs)}, {raw_leaf_bits} "
+          f"bits passed through raw [{card}]")
+    del coded
 
     # ---- decode against one prefill of the whole sequence: every decoded
     # token's logits, every recurrent layer's state after the last step
@@ -4045,6 +4161,450 @@ def recurrent_phase(torch, dev, card, build, arch: str):
             torch, dev, cfg.reduced(dtype=torch.float32), path, card)
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, launches
+
+
+# ----------------------------- prefix embeddings (13, 14), statistics (15)
+PREFIX = 1024                 # internvl2-26b's patch prefix (its config's)
+HUBERT_BATCH, HUBERT_SEQ = 4, 1024
+HUBERT_REFRESH = 4
+# the paper's geometry: 18 layers x 64 shards of gemma2-2b's w_gate stack
+STATS_SHARDS = 64
+
+
+def internvl_phase(torch, dev, card, build):
+    """Phase 13: ``internvl2-26b`` served at full width and full depth
+    after a 1024-patch prefix (see the module docstring).  Returns the
+    record and the path's launch counts."""
+    from repro_torch.comm.compression import histogram256
+    from repro_torch.configs import get_config
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.models import (decode_step, model_init, param_count,
+                                    prefill)
+    from repro_torch.models.common import tree_leaves
+
+    t_phase = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    need(held_gb < 1.0, f"internvl: the card still holds {held_gb:.2f} GB "
+         f"of earlier phases")
+    cfg = get_config("internvl2-26b")
+    need(cfg.prefix_len == PREFIX, f"internvl: prefix_len {cfg.prefix_len}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = param_count(params)
+    gb = sum(a.numel() * a.element_size() for a in tree_leaves(params)) / 1e9
+    print(f"internvl2-26b at full width and depth ({cfg.n_layers} attn "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads GQA kv "
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+          f"{n_params / 1e9:.4f} B parameters, {gb:.2f} GB; init "
+          f"{init_s:.1f} s, peak memory {init_peak:.2f} GB (held before "
+          f"{held_gb:.3f} GB) [{card}]")
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "param_gb": gb, "init_s": init_s, "init_peak_memory_gb": init_peak,
+           "prefix": PREFIX, "card": card}
+
+    def patches():              # seeded patch embeddings, float32
+        return torch.randn((BATCH, PREFIX, cfg.d_model), generator=gen,
+                           device=dev)
+
+    # ---- books for the serve wire: a warm-up prefill's logits (B5)
+    warm, warm_pfx = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                   generator=gen, device=dev), patches()
+    prompts, pfx = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                                 generator=gen, device=dev), patches()
+    cache_len = PREFIX + PROMPT + NEW
+    with torch.no_grad():
+        wl, _ = prefill(params, {"tokens": warm, "prefix_embeds": warm_pfx},
+                        cfg, cache_len)
+    need(wl.shape == (BATCH, PROMPT, cfg.vocab_size), f"internvl: prefill "
+         f"logits {tuple(wl.shape)} are not the token positions'")
+    books = {p: build_codebook(histogram256(s).cpu().numpy(),
+                               key=("act", "bf16", p))
+             for p, s in SCHEMES["bf16"].to_symbols(
+                 wl[:, -1].to(torch.bfloat16)).items()}
+    del wl, warm, warm_pfx
+    serve, toks, launches, coded = serve_three_ways(
+        torch, dev, params, cfg, books, prompts, "internvl", card, build,
+        prefix=pfx)
+    # the coded store's first ingest codes the prefix's slots with the
+    # prompt's
+    first = [int(v[0].slots.numel()) for v in coded._kv._segments.values()]
+    need(first == [PREFIX + PROMPT], f"internvl coded KV: the first ingest "
+         f"coded {first} slots, not the prefix's and the prompt's "
+         f"{PREFIX + PROMPT}")
+    serve["kv_first_ingest_slots"] = first[0]
+    print(f"internvl coded KV: the first ingest coded {first[0]} slots "
+          f"({PREFIX} prefix + {PROMPT} prompt) [{card}]")
+    del coded
+
+    # ---- decode against one prefill of the whole sequence (prefix and
+    # 95 tokens): every decoded token's logits
+    seq = torch.cat([prompts, torch.from_numpy(toks).to(dev)], dim=1)
+    n_seq = PROMPT + NEW - 1
+    with torch.no_grad():
+        _, caches = prefill(params, {"tokens": prompts, "prefix_embeds": pfx},
+                            cfg, cache_len)
+        outs = []
+        for t in range(PROMPT, n_seq):
+            lg, caches = decode_step(params, seq[:, t:t + 1], caches,
+                                     PREFIX + t, cfg)
+            outs.append(lg[:, 0].float())
+        full, _ = prefill(params, {"tokens": seq[:, :n_seq],
+                                   "prefix_embeds": pfx}, cfg, cache_len)
+    err = token_rel_err(torch, torch.stack(outs, dim=1), full[:, PROMPT:])
+    need(bool(torch.isfinite(err).all()), "internvl decode replay: logits "
+         "not finite")
+    serve["replay_logits_rel_err_max"] = float(err.max())
+    print(f"internvl decode vs one prefill of {PREFIX} + {n_seq} positions "
+          f"(bf16): logits rel err {float(err.max()):.3e} (every one of "
+          f"{BATCH * (n_seq - PROMPT)} tokens; tolerance {DECODE_TOL}) "
+          f"[{card}]")
+    need(float(err.max()) < DECODE_TOL, f"internvl decode vs full forward: "
+         f"logits rel err {float(err.max())}")
+    del outs, full
+
+    # ---- times: the prefill (4 x (1024 + 64)), a decode step (device)
+    last = seq[:, n_seq - 1:n_seq]
+    with torch.no_grad():
+        pre = {"tokens": prompts, "prefix_embeds": pfx}
+        pre_ms = cuda_ms(torch, lambda: prefill(params, pre, cfg,
+                                                cache_len)[0], 2)
+        pre_dev, pre_ops = device_ms(torch, lambda: prefill(
+            params, pre, cfg, cache_len)[0], 2)
+        step_dev, step_ops = device_ms(torch, lambda: decode_step(
+            params, last, caches, PREFIX + n_seq - 1, cfg)[0], 3)
+    table = params["embed"]["table"]          # a step reads B rows of it
+    read_gb = gb - table.numel() * table.element_size() / 1e9
+    # the products of the prefill: the layers over every position, the
+    # untied head over the token positions only, and the attention's
+    # scores and values over all (s x s, as computed)
+    s_all, head = PREFIX + PROMPT, params["embed"]["head"].numel()
+    pre_flop = (2.0 * (n_params - table.numel() - head) * BATCH * s_all
+                + 2.0 * head * BATCH * PROMPT
+                + 4.0 * cfg.n_layers * BATCH * s_all ** 2 * cfg.n_heads
+                * cfg.head_dim)
+    serve.update(prefill_ms=pre_ms, prefill_device_ms=pre_dev,
+                 prefill_device_ops=pre_ops, prefill_matmul_flop=pre_flop,
+                 decode_step_device_ms=step_dev,
+                 decode_step_device_ops=step_ops,
+                 decode_step_weight_gb=read_gb,
+                 decode_step_bound_ms=read_gb * 1e12 / HBM_BYTES_PER_S)
+    print(f"internvl: prefill of {BATCH} x ({PREFIX} + {PROMPT}) {pre_ms:.2f}"
+          f" ms ({pre_dev:.2f} device, {pre_ops:.0f} device ops; "
+          f"{pre_flop / 1e12:.1f} TFLOP of products, "
+          f"{pre_flop / BF16_FLOP_PER_S * 1e3:.2f} ms at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); a decode step "
+          f"{step_dev:.3f} ms device ({step_ops:.0f} device ops), host "
+          f"median {serve['decode_step_ms_median_no_wire']:.3f} ms; weights "
+          f"a step reads {read_gb:.2f} GB, "
+          f"{serve['decode_step_bound_ms']:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]")
+    rec["serve"] = serve
+    del params, caches, table, pfx, prompts, seq
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config: one step on the card and one on the CPU in
+    # bf16 (a 16-patch prefix), held to STEP_TOL
+    rec["reduced_card_vs_cpu"] = reduced_step_card_vs_cpu(
+        torch, dev, cfg.reduced(), "internvl", card)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec, launches
+
+
+def hubert_phase(torch, dev, card, build):
+    """Phase 14: ``hubert-xlarge`` at full width and full depth (see the
+    module docstring): a forward over frame embeddings with its logits
+    planes coded and decoded, then training.  Returns the record and the
+    launch counts of the coding path and of the train path."""
+    from repro_torch.comm.compression import histogram256
+    from repro_torch.configs import get_config, train_grad_accum
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.encoder import (chunk_counts_for, decode_chunked,
+                                          encode_chunked)
+    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.models import forward, model_init, param_count
+
+    t_phase = time.perf_counter()
+    cfg = get_config("hubert-xlarge")
+    need(cfg.prefix_only and not cfg.causal, "hubert: not a bidirectional "
+         "encoder over frame embeddings")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+    n_params = param_count(params)
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"hubert-xlarge at full width and depth ({cfg.n_layers} "
+          f"bidirectional attn layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}): {n_params / 1e9:.4f} B parameters; init peak "
+          f"{init_peak:.2f} GB [{card}]")
+
+    def frames():               # seeded frame embeddings, float32
+        return torch.randn((HUBERT_BATCH, HUBERT_SEQ, cfg.d_model),
+                           generator=gen, device=dev)
+
+    # ---- books from a warm-up forward's logits (B5)
+    with torch.no_grad():
+        wl = forward(params, {"prefix_embeds": frames()}, cfg)
+    need(wl.shape == (HUBERT_BATCH, HUBERT_SEQ, cfg.vocab_size),
+         f"hubert: logits {tuple(wl.shape)}")
+    books = {p: build_codebook(histogram256(s).cpu().numpy(),
+                               key=("act", "bf16", p))
+             for p, s in SCHEMES["bf16"].to_symbols(
+                 wl.to(torch.bfloat16)).items()}
+    del wl
+    x = frames()
+
+    # ---- the coding path: one forward, each logits plane through B1 ->
+    # B2 and B4; launch counts reset just before, read just after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = forward(params, {"prefix_embeds": x}, cfg)
+        planes = SCHEMES["bf16"].to_symbols(logits.to(torch.bfloat16))
+        coded = {}
+        for p, sym in planes.items():
+            stream = encode_chunked(sym, books[p], chunk=CHUNK, device=dev)
+            coded[p] = (stream, histogram256(sym),
+                        decode_chunked(stream, books[p], backend="multisym"))
+    torch.cuda.synchronize()
+    code_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for k in ("encode_lookup", "pack_blocks", "histogram256",
+              "decode_chunks_multisym"):
+        need(launches[k] > 0, f"hubert: kernel {k} was not launched")
+    n_sym = HUBERT_BATCH * HUBERT_SEQ * cfg.vocab_size
+    n_chunks = len(chunk_counts_for(n_sym, CHUNK))
+    need(bool(torch.isfinite(logits.float()).all()), "hubert: logits not "
+         "finite")
+    bits = {}
+    for p, (stream, hist, dec) in coded.items():
+        need(stream.n_chunks == n_chunks and stream.n_symbols == n_sym,
+             f"hubert {p}: {stream.n_chunks} chunks of {stream.n_symbols}")
+        need(torch.equal(dec, planes[p]), f"hubert {p}: the decode is not "
+             f"lossless")
+        b2 = int(stream.block_bits.to(torch.int64).sum())
+        b5 = int((hist * torch.from_numpy(books[p].lengths).to(
+            dev, torch.int64)).sum())
+        need(b2 == b5, f"hubert {p}: B2 bits {b2} != histogram . lengths "
+             f"{b5}")
+        bits[p] = b2
+    # the kernels at this plane, and the main path's stream and decode,
+    # against their plain versions (uncounted launches)
+    t0 = time.perf_counter()
+    for p, (stream, _, dec) in coded.items():
+        codec_held_to_plain(torch, f"hubert {p}", planes[p], books[p], CHUNK,
+                            stream=stream, decoded=dec)
+    held_s = time.perf_counter() - t0
+    coded_over_raw = sum(bits.values()) / (16.0 * n_sym)
+    rec = {"model": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "init_peak_memory_gb": init_peak, "card": card,
+           "code": {"symbols_a_plane": n_sym, "chunks_a_plane": n_chunks,
+                    "coded_bits": bits, "coded_over_raw": coded_over_raw,
+                    "seconds": code_s, "kernels_vs_plain_s": held_s,
+                    "launches": launches}}
+    print(f"hubert: one forward of {HUBERT_BATCH} x {HUBERT_SEQ} frames, its "
+          f"logits planes ({n_sym} symbols, {n_chunks} chunks each) coded "
+          f"and decoded losslessly, B2 bits = B5 . lengths; coded/raw "
+          f"{coded_over_raw:.4f}; {code_s:.2f} s; B1/B2/B4, the stream and "
+          f"the decode equal to the plain versions ({held_s:.2f} s) "
+          f"[{card}]")
+    del logits, planes, coded, x
+
+    # ---- train at full width (phase 7's path and checks)
+    ga = train_grad_accum(cfg.name)
+    trained, train_launches = train_phase(
+        torch, dev, params, cfg, card, build, batch=HUBERT_BATCH,
+        seq=HUBERT_SEQ, refresh=HUBERT_REFRESH, grad_accum=ga)
+    print_train(trained, card)
+    rec["train"] = trained
+    rec["seconds"] = time.perf_counter() - t_phase
+    del params
+    return rec, launches, train_launches
+
+
+def stats_phase(torch, dev, card, build):
+    """Phase 15: the paper's per-shard statistics and its two encoders
+    on gemma2-2b's w_gate stack (see the module docstring).  Returns the
+    record and the path's launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (encoded_size_bits, per_shard_report,
+                                  shard_histograms, single_stage_encode,
+                                  three_stage_encode)
+    from repro_torch.core.codebook import build_codebook
+    from repro_torch.core.entropy import shannon_entropy
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
+    from repro_torch.kernels.histogram import histogram256
+    from repro_torch.models import model_init
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma2-2b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        w = model_init(cfg, gen, device=dev)["groups"][0][0]["ffn"]["w_gate"]
+    torch.cuda.empty_cache()
+    layers, rows, cols = w.shape
+    n_shards = layers * STATS_SHARDS
+    scheme = SCHEMES["bf16"]
+
+    # ---- the path: every shard's histograms (B5 a shard and plane), the
+    # two encoders on w_gate[0]'s hi plane; launch counts reset just
+    # before, read just after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    hists = shard_histograms(w, scheme, STATS_SHARDS, layer_axis_len=layers)
+    shard_s = time.perf_counter() - t0
+    hi = bf16_planes(w[0])["hi"]
+    res3, book, stages = three_stage_encode(hi, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res1 = single_stage_encode(hi, book, device=dev)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for k in ("encode_lookup", "pack_blocks", "histogram256"):
+        need(launches[k] > 0, f"stats: kernel {k} was not launched")
+    need(launches["histogram256"] >= 2 * n_shards, f"stats: "
+         f"{launches['histogram256']} B5 launches for {n_shards} shards")
+
+    # ---- every shard's histograms against a plain count of the same
+    # split, made another way: each layer's rows cut into 64 column tiles,
+    # (shard, symbol) pairs counted by scatter-add
+    tile = cols // STATS_SHARDS
+    shard_of = torch.arange(STATS_SHARDS, device=dev).repeat_interleave(
+        rows * tile) * 256
+    plain = {p: [] for p in scheme.planes}
+    for li in range(layers):
+        t = w[li].reshape(rows, STATS_SHARDS, tile).transpose(0, 1)
+        for p, sym in bf16_planes(t).items():
+            idx = shard_of + sym.to(torch.int64)
+            plain[p].append(torch.zeros(
+                STATS_SHARDS * 256, dtype=torch.int64, device=dev
+            ).scatter_add_(0, idx, torch.ones_like(idx)).reshape(
+                STATS_SHARDS, 256))
+    del shard_of, idx
+    for p in scheme.planes:
+        want = torch.cat(plain[p]).cpu().numpy()
+        need(hists[p].shape == (n_shards, 256) and hists[p].dtype == np.int64,
+             f"stats {p}: histograms {hists[p].shape} {hists[p].dtype}")
+        bad = int((hists[p] != want).any(axis=1).sum())
+        need(bad == 0, f"stats {p}: {bad} of {n_shards} shard histograms "
+             f"differ from the plain count")
+        need(int(hists[p].sum()) == w.numel(), f"stats {p}: "
+             f"{int(hists[p].sum())} symbols counted of {w.numel()}")
+
+    # ---- the per-shard report (host): means over the 1152 shards
+    t0 = time.perf_counter()
+    report = {}
+    for p in scheme.planes:
+        avg = build_codebook(hists[p].sum(axis=0))
+        r = per_shard_report(hists[p], avg.lengths)
+        report[p] = {k: float(v.mean()) for k, v in r.items()}
+        report[p]["per_shard_minus_fixed"] = float(
+            (r["per_shard_huffman"] - r["fixed_codebook"]).mean())
+        report[p]["ideal_minus_fixed"] = float(
+            (r["ideal"] - r["fixed_codebook"]).mean())
+    report_s = time.perf_counter() - t0
+    for p, r in report.items():
+        print(f"stats {p}: per_shard_report means over {n_shards} shards "
+              f"({layers} layers x {STATS_SHARDS}): ideal {r['ideal']:.4f}, "
+              f"per-shard Huffman {r['per_shard_huffman']:.4f}, fixed "
+              f"codebook {r['fixed_codebook']:.4f}, per-shard - fixed "
+              f"{r['per_shard_minus_fixed']:.4f}, ideal - fixed "
+              f"{r['ideal_minus_fixed']:.4f}, KL {r['kl_from_avg']:.3e} "
+              f"bits (random weights, report only) [{card}]")
+
+    # ---- the two encoders: with the plane's own book, equal words and
+    # bits; the bits = B5 . lengths
+    n_bits = int(res3.n_bits)
+    need(torch.equal(res1.words, res3.words) and int(res1.n_bits) == n_bits,
+         "stats: the single stage's words differ from the three stages'")
+    ledger = int(encoded_size_bits(histogram256(hi), book.lengths))
+    need(ledger == n_bits, f"stats: encoded bits {n_bits} != B5 . lengths "
+         f"{ledger}")
+    need(stages["wire_bits"] == n_bits + 8 * 256, f"stats: wire_bits "
+         f"{stages['wire_bits']}")
+    enc = {"symbols": hi.numel(), "n_bits": n_bits,
+           "coded_over_raw": n_bits / (8.0 * hi.numel()),
+           "wire_bits": stages["wire_bits"],
+           "three_stage_s": {k: v for k, v in stages.items()
+                             if k.endswith("_s")},
+           "single_stage_s": single_s,
+           "single_stage_ms": cuda_ms(torch, lambda: single_stage_encode(
+               hi, book, device=dev).words, 3)}
+    print(f"stats: w_gate[0] hi plane ({hi.numel()} symbols): three stages "
+          + ", ".join(f"{k} {v:.4f}" for k, v in enc["three_stage_s"].items())
+          + f" s; single stage {single_s:.4f} s ({enc['single_stage_ms']:.3f}"
+          f" ms, events over 3 calls); words and {n_bits} bits equal "
+          f"(coded/raw {enc['coded_over_raw']:.4f}); wire bits three "
+          f"stages {stages['wire_bits']} [{card}]")
+
+    # ---- each scheme's planes of seeded tensors on the card against the
+    # plain (CPU) split of the same values
+    x = torch.randn(1 << 20, generator=gen, device=dev) * 0.05
+    x[:8] = torch.tensor([float("nan"), -float("nan"), float("inf"),
+                          -float("inf"), 0.0, -0.0, 470.0, 1e-40], device=dev)
+    schemes = {}
+    for name, sch in SCHEMES.items():
+        got = sch.to_symbols(x)
+        want = sch.to_symbols(x.cpu())
+        for p in sch.planes:
+            need(torch.equal(got[p].cpu(), want[p]), f"stats: scheme {name} "
+                 f"plane {p} on the card differs from the CPU's")
+        schemes[name] = {p: float(shannon_entropy(
+            histogram256(got[p]).cpu().numpy()[:sch.n_symbols]))
+            for p in sch.planes}
+    print("stats: the seven schemes' planes of 2^20 seeded values (with "
+          "the specials) equal on the card and the CPU; entropy bits a "
+          "symbol: " + "; ".join(
+              f"{n} " + ", ".join(f"{p} {v:.3f}" for p, v in e.items())
+              for n, e in schemes.items()) + f" [{card}]")
+    rec = {"model": cfg.name, "tensor": "w_gate", "shape": [layers, rows, cols],
+           "shards": n_shards, "shard_histograms_s": shard_s,
+           "report": report, "report_s": report_s, "encoders": enc,
+           "scheme_entropy_bits": schemes, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    del w, hi
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def print_train(trained, card) -> None:
+    """The train record's summary lines (phases 7 and 14)."""
+    p = trained["profile"]
+    print(f"{trained['model']} train step: {trained['step_ms_median']:.1f} ms "
+          f"host-clock median of {TRAIN_STEPS} ({trained['batch']} x "
+          f"{trained['seq_len']}, grad_accum {trained['grad_accum']}), "
+          f"{trained['tokens_per_s']:.0f} tokens/s; "
+          f"device {p['device_busy_ms_per_step']:.2f} ms a step, idle share "
+          f"{p['idle_share']:.4f} (profiler, {p['steps']} steps), B5 "
+          f"{trained['b5_device_ms_per_step']:.4f} ms a step "
+          f"({100 * trained['b5_share_of_device']:.2f} % of device); "
+          f"gradient coded/raw {trained['grad_coded_over_raw_bootstrap']:.4f}"
+          f" (bootstrap books) -> "
+          f"{trained['grad_coded_over_raw_refreshed']:.4f} (epoch "
+          f"{trained['refreshed_epoch']}); refresh host s "
+          f"{[round(r['seconds'], 4) for r in trained['refreshes']]}; "
+          f"peak memory {trained['peak_memory_gb']:.2f} GB; host syncs "
+          f"in a step {trained['host_syncs_a_step']} "
+          f"{trained['host_sync_sites']} [{card}]")
+    for k, r in trained["parts"].items():
+        print(f"  train step part {k}: {r['wall_ms_per_step']:.2f} ms wall, "
+              f"{r['device_busy_ms_per_step']:.2f} ms device, idle share "
+              f"{r['idle_share']:.4f} (profiler, 2 calls) [{card}]")
 
 
 def reduced_step_card_vs_cpu(torch, dev, rcfg, what: str, card,

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.symbols import xla_cast
+
 __all__ = ["to_wire", "wire_add", "peer_sum", "rank_sum"]
 
 # Integer views for moving wire values through ops torch lacks for fp8.
@@ -28,15 +30,9 @@ _BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
          torch.float32: torch.int32}
 
 
-def to_wire(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """float32 → the wire dtype as XLA converts: round to nearest even;
-    for e4m3fn a magnitude past 464 (which rounds beyond 448) or a NaN
-    gives NaN with the value's sign (torch's own conversion saturates)."""
-    if dtype != torch.float8_e4m3fn:
-        return v.to(dtype)
-    r = v.to(dtype).view(torch.uint8)
-    nan = (torch.signbit(v).to(torch.uint8) << 7) | 0x7F
-    return torch.where(v.abs() <= 464, r, nan).view(dtype)
+# float32 → the wire dtype as XLA converts: e4m3fn gives NaN where torch
+# saturates (see ``core.symbols.xla_cast``)
+to_wire = xla_cast
 
 
 def wire_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

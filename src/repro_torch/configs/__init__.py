@@ -1,7 +1,7 @@
-"""Architecture registry (port of ``repro.configs``): the configs whose
-block kinds are ported (dense attention, MLA, MoE, RG-LRU and Mamba-2);
-``hubert-xlarge`` and ``internvl2-26b`` wait for prefix embeddings
-(ROADMAP.md A8)."""
+"""Architecture registry (port of ``repro.configs``): every config of the
+reference — dense attention, MLA, MoE, RG-LRU, Mamba-2, and the
+prefix-embedding models ``internvl2-26b`` (a VLM decoder after a patch
+prefix) and ``hubert-xlarge`` (an encoder over frame embeddings)."""
 from __future__ import annotations
 
 import importlib
@@ -20,14 +20,16 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "mamba2-780m": "mamba2_780m",
+    "internvl2-26b": "internvl2_26b",
+    "hubert-xlarge": "hubert_xlarge",
 }
 ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown or unported arch {arch_id!r}; "
-                       f"ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f".{_MODULES[arch_id]}", __package__)
 
 

@@ -35,11 +35,14 @@ that searched at the cursor took some thirty tensor operations.
 The entry points ``encode_chunked`` / ``decode_chunked`` /
 ``decode_dispatch`` go through ``repro_torch.kernels``, whose wrappers
 launch the CUDA kernels for tensors on the card and run these plain
-versions for tensors on the CPU.  ``encode_np`` / ``decode_np`` are the
-pure-Python oracles.
+versions for tensors on the CPU.  ``three_stage_encode`` (scan, build,
+encode) and ``single_stage_encode`` (a fixed book, one pass) are the two
+encoders the paper compares, and ``encoded_size_bits`` the ledger's
+size.  ``encode_np`` / ``decode_np`` are the pure-Python oracles.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -59,6 +62,7 @@ __all__ = [
     "decode_chunks", "decode_chunks_multisym",
     "encode_chunked", "decode_chunked", "decode_dispatch",
     "encode_np", "decode_np",
+    "three_stage_encode", "single_stage_encode", "encoded_size_bits",
 ]
 
 # Symbols per chunk of the chunked wire format (reference DEFAULT_CHUNK,
@@ -550,6 +554,65 @@ def decode_dispatch(stream, book, n_symbols: Optional[int] = None, *,
         raise ValueError("monolithic decode needs n_symbols")
     return codec_for_book(book).decode_plane(stream, book, n_symbols).to(
         torch.uint8)
+
+
+# --------------------------------------------------------------------------
+# The two encoder designs the paper compares
+# --------------------------------------------------------------------------
+def three_stage_encode(symbols, *, n_alphabet: int = 256,
+                       max_len: int = MAX_CODE_LEN, device=None):
+    """Baseline: scan → build codebook → encode, on ``device`` (CUDA
+    unless named).  The scan is kernel B5 and one read of its counts, the
+    build the host's, the encode ``encode_jit`` (B1 → B2 → merge; each
+    wrapper's plain version on the CPU).  Returns (EncodeResult,
+    Codebook, stage seconds): ``freq_scan_s``, ``tree_build_s``,
+    ``encode_s`` (a stage on the card ends in a synchronize), and
+    ``wire_bits``, the payload plus the book that must ride with it
+    (a lengths vector, ``n_alphabet`` bytes)."""
+    from ..kernels.histogram import histogram256
+    from .codebook import build_codebook
+    dev = resolve_device(device)
+    sym = torch.as_tensor(symbols).reshape(-1).to(device=dev,
+                                                  dtype=torch.uint8)
+
+    def now() -> float:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    t0 = now()
+    counts = histogram256(sym)[:n_alphabet].cpu().numpy()
+    t1 = now()
+    book = build_codebook(counts, max_len=max_len)
+    t2 = now()
+    words, n_bits = encode_jit(sym, book.codes, book.lengths, max_len=max_len)
+    t3 = now()
+    res = EncodeResult(words=words, n_bits=n_bits, n_symbols=sym.numel())
+    stages = {"freq_scan_s": t1 - t0, "tree_build_s": t2 - t1,
+              "encode_s": t3 - t2,
+              "wire_bits": int(n_bits) + 8 * n_alphabet}
+    return res, book, stages
+
+
+def single_stage_encode(symbols, book, *, device=None) -> EncodeResult:
+    """The paper's encoder: one pass through a fixed codebook
+    (``encode_jit``, on ``device``, CUDA unless named).  Wire payload =
+    header (book id + count) + bits; no codebook, no scan."""
+    dev = resolve_device(device)
+    sym = torch.as_tensor(symbols).reshape(-1).to(device=dev,
+                                                  dtype=torch.uint8)
+    words, n_bits = encode_jit(sym, book.codes, book.lengths,
+                               max_len=book.max_len)
+    return EncodeResult(words=words, n_bits=n_bits, n_symbols=sym.numel(),
+                        book_id=book.book_id)
+
+
+def encoded_size_bits(counts, lengths) -> torch.Tensor:
+    """Ledger-mode exact size: histogram · lengths, summed in int64 on
+    the counts' device (the reference's float32 dot is inexact past 2^24
+    bits)."""
+    c = torch.as_tensor(counts).to(torch.int64)
+    return (c * torch.as_tensor(lengths).to(c.device, torch.int64)).sum()
 
 
 # --------------------------------------------------------------------------

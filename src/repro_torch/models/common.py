@@ -1,6 +1,7 @@
 """Model configuration and parameter helpers (port of
-``repro.models.common``, the fields the ported block kinds read: dense
-attention, MLA, MoE, Mamba-2 and RG-LRU).
+``repro.models.common``: every field of the reference's config, for
+dense attention, MLA, MoE, Mamba-2, RG-LRU and the prefix-embedding
+front ends of the VLM and audio configs).
 
 A config's layer stack is a tuple of ``BlockGroup``s — (pattern of block
 kinds, repeat count).  Parameters keep the reference's layout: every
@@ -33,8 +34,7 @@ class BlockGroup:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                 # dense | moe | ssm | hybrid (ported);
-                                   # audio | vlm wait for prefix embeddings
+    arch_type: str                 # dense | moe | ssm | hybrid | audio | vlm
     d_model: int
     vocab_size: int
     blocks: Tuple[BlockGroup, ...]
@@ -45,7 +45,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     rope_theta: float = 10_000.0
     sliding_window: int = 0        # >0 → windowed attention for "local"
-    causal: bool = True
+    causal: bool = True            # False → encoder-only (hubert)
     d_ff: int = 0
     ffn_activation: str = "silu"   # silu (gated) | gelu (gated, tanh form)
     # ---- moe ----
@@ -83,6 +83,9 @@ class ModelConfig:
     # ---- rg-lru (recurrentgemma) ----
     lru_width: int = 0
     conv_width: int = 4
+    # ---- prefix-embedding front ends (their towers are not models here)
+    prefix_len: int = 0            # VLM patch slots before the tokens
+    prefix_only: bool = False      # True → inputs are frame embeddings
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
@@ -154,6 +157,7 @@ class ModelConfig:
             lru_width=d if self.lru_width else 0,
             sliding_window=min(self.sliding_window, 64)
             if self.sliding_window else 0,
+            prefix_len=min(self.prefix_len, 16) if self.prefix_len else 0,
             remat="none",
         )
         defaults.update(overrides)

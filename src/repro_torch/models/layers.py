@@ -1,6 +1,7 @@
 """Shared neural layers (port of ``repro.models.layers``): RMSNorm,
 rotary embeddings, GQA attention (full / sliding window, full-sequence,
-prefill and cached one-token decode), gated MLP, embeddings.
+prefill and cached one-token decode), gated MLP, embeddings (with the
+prefix embeddings of the VLM and audio configs).
 
 Tensor layouts are the reference's: ``wq (d, H, hd)``, ``wk/wv
 (d, KV, hd)``, ``wo (H, hd, d)``, KV caches ``(B, slots, KV, hd)`` with
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..comm.wire import to_wire
+from ..core.symbols import xla_cast
 from .common import ModelConfig, truncated_normal_init
 
 _NEG = torch.finfo(torch.float32).min
@@ -61,16 +62,9 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 # ------------------------------------------------------------ cache writes
-def cache_cast(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A value written into a KV cache of ``dtype``, cast as the
-    reference's ``astype`` casts it under XLA: to float8_e4m3fn a
-    magnitude past 464 (which rounds beyond 448) gives NaN with its
-    sign, where torch's own conversion saturates (``comm.wire.to_wire``;
-    bf16 and float32 values reach float32 exactly); other dtypes by
-    ``.to``."""
-    if dtype == torch.float8_e4m3fn:
-        return to_wire(v.to(torch.float32), dtype)
-    return v.to(dtype)
+# a value written into a KV cache, cast as the reference's ``astype``
+# casts it under XLA: to float8_e4m3fn NaN past 464, where torch saturates
+cache_cast = xla_cast
 
 
 # ----------------------------------------------------------- GQA attention
@@ -251,10 +245,16 @@ def embed_init(cfg: ModelConfig, generator, device):
     return p
 
 
-def embed_apply(params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Token embeddings times sqrt(d), the factor rounded to the model
-    dtype first, as the reference does."""
-    x = params["table"][tokens]
+def embed_apply(params, tokens: Optional[torch.Tensor], cfg: ModelConfig,
+                prefix: Optional[torch.Tensor] = None):
+    """The input sequence times sqrt(d), the factor rounded to the model
+    dtype first, as the reference does: token embeddings (B, S), after
+    ``prefix`` (B, P, d) embeddings when given (cast to the model dtype
+    first; a prefix-only input has ``tokens=None``)."""
+    parts = [] if prefix is None else [prefix.to(cfg.dtype)]
+    if tokens is not None:
+        parts.append(params["table"][tokens])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     scale = torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x * scale
 

@@ -8,6 +8,12 @@ Parameters and caches keep the reference's tree: ``{"embed",
 loop over that axis.  Caches stack the same way (an MoE block's with
 its routing counts; a recurrent block's fixed-size state and conv tail,
 with no positions), and ``decode_step`` updates them in place.
+
+Inputs are the reference's batch keys: ``tokens`` (B, S) and/or
+``prefix_embeds`` (B, P, d), precomputed patch or frame embeddings (the
+vision tower and the audio front end are not models here).  The input
+sequence is [prefix] + [tokens]; with both keys, the logits cover the
+token positions only.
 """
 from __future__ import annotations
 
@@ -36,12 +42,30 @@ def model_init(cfg: ModelConfig, generator: torch.Generator, device=None):
     dev = resolve_device(device)
     groups = []
     for bg in cfg.blocks:
-        subs = tuple(tree_stack([block_init(kind, cfg, generator, dev)
-                                 for _ in range(bg.repeats)])
+        subs = tuple(_stacked_init(kind, bg.repeats, cfg, generator, dev)
                      for kind in bg.pattern)
         groups.append(subs)
     return {"embed": embed_init(cfg, generator, dev), "groups": tuple(groups),
             "final_norm": rmsnorm_init(cfg, dev)}
+
+
+def _stacked_init(kind: str, repeats: int, cfg: ModelConfig, generator,
+                  device):
+    """``repeats`` blocks of ``kind`` drawn in order, each written into a
+    stack allocated at the first draw: the peak is the stack and one
+    block, where stacking a list of blocks would hold the stack twice
+    (internvl2-26b's three FFN stacks are 9.66 GB each)."""
+    first = block_init(kind, cfg, generator, device)
+    if repeats == 1:
+        return tree_stack([first])
+    stack = tree_map(lambda a: a.new_empty((repeats,) + tuple(a.shape)),
+                     first)
+    for r in range(repeats):
+        block = first if r == 0 else block_init(kind, cfg, generator, device)
+        for dst, src in zip(tree_leaves(stack), tree_leaves(block)):
+            dst[r].copy_(src)
+        del block
+    return stack
 
 
 def param_count(params) -> int:
@@ -58,29 +82,38 @@ def _layers(cfg: ModelConfig, params):
                 yield gi, si, r, kind, tree_index(subs[si], r)
 
 
-def _tokens(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    if set(batch) != {"tokens"}:
-        raise NotImplementedError(
-            "only token inputs are ported (prefix embeddings wait for the "
-            "VLM/audio configs, ROADMAP.md A8)")
-    return batch["tokens"]
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """The input sequence (reference ``_embed_inputs``): [prefix
+    embeddings] + [token embeddings], times sqrt(d)."""
+    return embed_apply(params["embed"], batch.get("tokens"), cfg,
+                       batch.get("prefix_embeds"))
+
+
+def _logits(params, x, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Final norm and unembed, over the token positions only when the
+    batch has both a prefix and tokens."""
+    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if "prefix_embeds" in batch and "tokens" in batch:
+        x = x[:, batch["prefix_embeds"].shape[1]:]
+    return unembed_apply(params["embed"], x, cfg)
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Full-sequence forward: tokens (B, S) → logits (B, S, vocab)."""
-    x = embed_apply(params["embed"], _tokens(batch), cfg)
+    """Full-sequence forward: the batch's inputs → logits (B, S, vocab),
+    S the token positions (every position of a prefix-only batch)."""
+    x = _embed_inputs(params, batch, cfg)
     mesh = current_mesh()
     for _, _, _, kind, p in _layers(cfg, params):
         x, _, _ = block_apply(kind, p, x, cfg, mesh)
-    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    return unembed_apply(params["embed"], x, cfg)
+    return _logits(params, x, batch, cfg)
 
 
 def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                   *, with_stats: bool = False):
-    """Full-sequence forward for training: tokens (B, S) → (logits
-    (B, S, vocab), aux), differentiable by autograd.  Other batch keys
-    (``labels``, ``loss_mask``) are the loss's.
+    """Full-sequence forward for training: the batch's inputs → (logits
+    (B, S, vocab) over the token positions, aux), differentiable by
+    autograd.  Other batch keys (``labels``, ``loss_mask``) are the
+    loss's.
 
     Each layer's parameters are ``unbind`` views of its group's stacked
     leaves, so the backward writes each stacked gradient once (one
@@ -96,13 +129,9 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     under ``moe_impl="a2a"`` on a mesh).  The mesh is read once, here,
     so a block's re-run in the backward sees the forward's.
     """
-    if "prefix_embeds" in batch:
-        raise NotImplementedError(
-            "prefix embeddings are not ported yet (the VLM/audio configs, "
-            "ROADMAP.md A8)")
     if cfg.remat not in ("none", "block", "save_mixer_ffn"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    x = embed_apply(params["embed"], batch["tokens"], cfg)
+    x = _embed_inputs(params, batch, cfg)
     mesh = current_mesh() or {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     wire = torch.zeros((), dtype=torch.float64, device=x.device)
@@ -118,8 +147,7 @@ def forward_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                                          use_reentrant=False)
                 aux = aux + a
                 wire = wire + w
-    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed_apply(params["embed"], x, cfg)
+    logits = _logits(params, x, batch, cfg)
     if with_stats:
         return logits, aux, {"moe_wire_coded_bits": wire}
     return logits, aux
@@ -140,15 +168,16 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None,
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache_len: int):
-    """Full-sequence forward that materializes every block's cache."""
-    x = embed_apply(params["embed"], _tokens(batch), cfg)
+    """Full-sequence forward that materializes every block's cache (of
+    every position, prefix included); the logits cover the token
+    positions."""
+    x = _embed_inputs(params, batch, cfg)
     per = [[[] for _ in bg.pattern] for bg in cfg.blocks]
     for gi, si, _, kind, p in _layers(cfg, params):
         x, c = block_prefill(kind, p, x, cfg, cache_len)
         per[gi][si].append(c)
-    x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     caches = tuple(tuple(tree_stack(cs) for cs in g) for g in per)
-    return unembed_apply(params["embed"], x, cfg), caches
+    return _logits(params, x, batch, cfg), caches
 
 
 def decode_step(params, tokens: torch.Tensor, caches, pos: int,

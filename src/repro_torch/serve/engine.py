@@ -29,9 +29,14 @@ wire itself).  MLA models serve from their latent caches
 (``models.mla``), the recurrent kinds from their fixed-size states
 (``models.rglru``, ``models.ssm``); under ``kv_mode="coded"`` the
 ``CodedKVStore`` codes only ``{k, v, pos}`` nodes, so a latent cache or
-a recurrent state stays raw, as in the reference.  Prefix embeddings
-(VLM and audio) are not ported yet and raise ``NotImplementedError``
-(ROADMAP.md A8).
+a recurrent state stays raw, as in the reference.
+
+Prefix embeddings: ``generate(prompt_tokens, n, prefix_embeds=)`` runs
+the prefill on [prefix] + [prompt] (a VLM's patch embeddings), so the
+caches (and a coded KV store's first ingest) hold the prefix's slots
+too and decoding starts after both.  An encoder-only config
+(``prefix_only``, the audio model) has no decode step: ``Engine``
+refuses it.
 """
 from __future__ import annotations
 
@@ -195,6 +200,10 @@ class Engine:
         if kv_mode not in ("raw", "coded"):
             raise ValueError(f"kv_mode must be 'raw' or 'coded', "
                              f"got {kv_mode!r}")
+        if model_cfg.prefix_only:
+            raise ValueError(f"{model_cfg.name} is an encoder over prefix "
+                             f"embeddings (prefix_only): it has no decode "
+                             f"step to serve")
         self.device = resolve_device(device)
         if param_store is not None:
             if params is not None:
@@ -292,13 +301,15 @@ class Engine:
     def generate(self, prompt_tokens, max_new_tokens: int,
                  prefix_embeds=None) -> Tuple[np.ndarray, Dict[str, float]]:
         """prompt_tokens: (B, S) ints → (B, max_new_tokens) generated ids
-        and the summed metrics."""
-        if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeddings are not ported yet "
-                                      "(ROADMAP.md A8)")
+        and the summed metrics.  ``prefix_embeds`` (B, P, d), when given,
+        precede the prompt (cast to the model's dtype by the model)."""
         tokens = torch.as_tensor(prompt_tokens).to(device=self.device,
                                                    dtype=torch.int64)
-        logits, caches = prefill(self.params, {"tokens": tokens}, self.cfg,
+        batch = {"tokens": tokens}
+        if prefix_embeds is not None:
+            batch["prefix_embeds"] = torch.as_tensor(prefix_embeds).to(
+                self.device)
+        logits, caches = prefill(self.params, batch, self.cfg,
                                  self.serve.max_cache_len)
         if self._kv is not None:
             # A fresh coded store per request: ingest the prefill slots,
@@ -307,7 +318,8 @@ class Engine:
             self._kv = self._make_kvstore()
             self._kv.ingest(caches)
             caches = self._kv.read(caches)
-        prompt_len = tokens.shape[1]
+        prompt_len = tokens.shape[1] + (0 if prefix_embeds is None
+                                        else batch["prefix_embeds"].shape[1])
         tok = self._sample(logits)
         out = [tok]
         totals: Dict[str, float] = {}

@@ -64,6 +64,13 @@ def _f64(x) -> np.ndarray:
     return np.asarray(x).astype(np.float64)
 
 
+def _leaf_rel(g: np.ndarray, w: np.ndarray) -> float:
+    """max |g − w| / max |w|; a zero leaf (a prefix-only model's token
+    table gradient) reads 0 when both are zero, inf otherwise."""
+    d, top = float(np.abs(g - w).max()), float(np.abs(w).max())
+    return d / top if top else (0.0 if d == 0.0 else float("inf"))
+
+
 def step_deviation(got: Dict[str, Any], want: Dict[str, Any],
                    lr: Optional[float] = None) -> Dict[str, float]:
     """How far one step's results are from another's, in ``STEP_TOL``'s
@@ -96,8 +103,7 @@ def step_deviation(got: Dict[str, Any], want: Dict[str, Any],
             out[name] = max(rel(k) for k in keys)
             continue
         out[name] = max(
-            float(np.abs(_f64(g) - w).max() / np.abs(w).max())
-            for k in keys for g, w in zip(
+            _leaf_rel(_f64(g), w) for k in keys for g, w in zip(
                 tree_leaves(got[k]), map(_f64, tree_leaves(want[k]))))
     if "params" in got and "params" in want:
         steps = flips = 0.0
@@ -174,16 +180,25 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor],
     otherwise (the reference's ``value_and_grad`` and scan)."""
     def grad_fn(micro):
         req = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        if cfg.prefix_only:
+            # a prefix-only batch has no tokens: the forward never reads
+            # the token table, whose gradient is zero, as in the
+            # reference; every other leaf must be read (autograd raises)
+            req["embed"]["table"].requires_grad_(False)
+        leaves = tree_leaves(req)
         with torch.enable_grad():
             logits, aux, fstats = forward_train(req, micro, cfg,
                                                 with_stats=True)
             ce = cross_entropy_loss(logits, micro["labels"],
                                     micro.get("loss_mask"))
             loss = ce + aux
-            grads = torch.autograd.grad(loss, tree_leaves(req))
+            got = iter(torch.autograd.grad(
+                loss, [p for p in leaves if p.requires_grad]))
+        grads = [next(got) if p.requires_grad else torch.zeros_like(p)
+                 for p in leaves]
         return (loss.detach(), (ce.detach(), aux,
                                 fstats["moe_wire_coded_bits"]),
-                tree_unflatten(params, list(grads)))
+                tree_unflatten(params, grads))
 
     if grad_accum == 1:
         return grad_fn(batch)
@@ -309,8 +324,10 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig,
             metrics["grad_wire_outer_raw_bits"] = outer_f * raw
             metrics["grad_wire_outer_coded_bits"] = outer_f * coded
         if enabled:
+            # the batch's token positions: every batch has labels (a
+            # prefix-only batch has no tokens)
             dispatch, wire = moe_ep_raw_bits(
-                model_cfg, batch["tokens"].numel(),
+                model_cfg, batch["labels"].numel(),
                 comp_spec.scheme.total_symbol_bits(), ep_degree)
             metrics["moe_dispatch_raw_bits"] = z + dispatch
             metrics["moe_wire_raw_bits"] = z + wire

@@ -7,6 +7,7 @@ rtol/atol 1e-4 (float32; the two frameworks sum in different orders);
 greedy tokens are equal; the bitexact wire's coded and decoded bits are
 equal to the reference's on the same logits.
 """
+import dataclasses
 import functools
 
 import pytest
@@ -153,9 +154,14 @@ def test_engine_refuses_unported_options():
     # a lifecycle manager needs a spec, as in the reference
     with pytest.raises(ValueError, match="needs a comp_spec"):
         Engine(tparams, tcfg, sc, device="cpu", lifecycle=object())
+    # prefix embeddings serve after the prompt's prefill; an encoder
+    # over prefix embeddings has no decode step and refuses
     eng = Engine(tparams, tcfg, sc, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
+    toks, _ = eng.generate(_tokens(4), 2, prefix_embeds=torch.zeros(2, 1, 64))
+    assert toks.shape == (2, 2)
+    enc = dataclasses.replace(tcfg, prefix_only=True, causal=False)
+    with pytest.raises(ValueError, match="prefix_only"):
+        Engine(tparams, enc, sc, device="cpu")
     # the recurrent kinds serve; an unknown kind refuses
     for kind in ("rec", "mamba"):
         cfg = ModelConfig(name="m", arch_type="x", d_model=64,

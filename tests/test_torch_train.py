@@ -395,14 +395,29 @@ def test_refusals_match_reference():
     assert bool(torch.isfinite(loss))
     assert [g.shape for g in tree_leaves(grads)] == [
         p.shape for p in tree_leaves(params)]
+    # a leaf the forward never reads is a fault, and autograd says so
+    stray = dict(params, embed=dict(params["embed"],
+                                    stray=torch.zeros(2)))
+    with pytest.raises(RuntimeError, match="not have been used"):
+        tstep.loss_and_grads(stray, batch, mamba)
     bare = {"embed": {"table": torch.zeros(TCFG.vocab_size, TCFG.d_model)},
             "groups": (({},),)}
     odd = dataclasses.replace(TCFG, blocks=(BlockGroup(("ssm4",), 1),))
     with pytest.raises(ValueError, match="unknown block kind"):
         tstep.loss_and_grads(bare, batch, odd)
-    with pytest.raises(NotImplementedError, match="A8"):
-        forward_train({}, {"tokens": torch.zeros(1, 2, dtype=torch.int64),
-                           "prefix_embeds": torch.zeros(1, 1, 8)}, TCFG)
+    # prefix embeddings train: logits over the token positions only; a
+    # prefix-only batch never reads the token table, whose gradient is 0
+    d = mamba.d_model
+    vlm = dict(batch, prefix_embeds=torch.randn(1, 3, d))
+    logits, _ = forward_train(params, vlm, mamba)
+    assert logits.shape == (1, 2, mamba.vocab_size)
+    audio = {"prefix_embeds": torch.randn(1, 2, d), "labels": batch["labels"]}
+    enc = dataclasses.replace(mamba, prefix_only=True, tie_embeddings=False)
+    loss, _, grads = tstep.loss_and_grads(
+        model_init(enc, torch.Generator().manual_seed(0), device="cpu"),
+        audio, enc)
+    assert bool(torch.isfinite(loss))
+    assert not grads["embed"]["table"].any()
 
 
 def test_moe_wire_raw_bits_equal_reference():
