@@ -54,7 +54,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    once with the ``multisym`` decode backend (kernel B4) and once with
    ``scan`` (kernel B3).  Every step must decode losslessly, code 2 x 500
    chunks, carry B2 chunk bits equal to histogram (B5) . lengths, and the
-   kernels' launch counters must show the path ran through them;
+   kernels' launch counters must show the path ran through them; the
+   decode step without the wire is timed on the device (profiler) at
+   batch 4 over 96 cache slots;
 5. coded-at-rest serve (``repro_torch.launch.dryrun.memstore_check`` at
    full width), under Huffman and QLC: the whole tree coded into a
    ``CompressedParamStore`` on the card, materialized bit for bit, the
@@ -192,7 +194,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the decode step (host median, device ms), the MLA layer's decode and
    prefill, the a2a call with its wires' kernels, ``moe_apply``, the
    experts' products, the eshard call; then the ``reduced()`` DeepSeek
-   step on the card and the CPU within ``STEP_TOL``;
+   step on the card and the CPU within ``STEP_TOL`` in float32 (bf16
+   printed), and, report only, the bf16 forward's routing flips between
+   the card and the CPU, the bf16 step with the flipped tokens masked
+   out of the loss, and the first op past a bf16 ulp;
 11. RG-LRU: ``recurrentgemma-9b`` at full width and full depth (38
    layers: 12 x (``rec``, ``rec``, ``local``) + 2 ``rec``; 9.63 B
    parameters from seed 0, after DeepSeek is freed).  Launch counts are
@@ -280,12 +285,28 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    bits, bits = B5 . lengths, the stage seconds; and the seven symbol
    schemes' planes of 2^20 seeded values (NaN, inf, 470 among them) equal
    on the card and the CPU;
-16. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+16. examples and the roofline: the three examples' ``main`` on the
+   card (``repro_torch.examples``; ``launches_by_path["examples"]``):
+   ``quickstart`` at its sizes (every plane lossless, coded bits = B5 .
+   lengths), ``serve_compressed`` at its sizes (the 8-rank gather bit
+   for bit, its coded bits = B5 . lengths, the ring's ranks agreeing)
+   and ``train_sft_compressed`` at its default width (~100 M
+   parameters) with ``--steps 100 --rebuild-every 25`` (the loss falls,
+   the first rebuild codes the gradients smaller); then
+   ``launch.dryrun.one_card_bound`` (the reference's analytic terms on a
+   one-card mesh) of the steps timed above, each at its exact shape --
+   phase 4's gemma2-2b decode step at batch 4 over 96 cache slots,
+   phase 7's train step at 4 x 128, phase 13's internvl2-26b decode step
+   over 1120 slots, phase 14's hubert-xlarge train step at 4 x 1024 in
+   two microbatches -- printed beside its device ms with the share
+   (bound / measured), which must not pass ``SHARE_LIMIT`` (1.05: past
+   it, the count is wrong);
+17. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
-   ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}`` and one
-   ``{"stats": ...}`` record, one ``{"kernels": [...]}`` record (B1-B8,
-   with ``launches_by_path`` for every path), then ``{"ok": true,
-   "device": {...}}``.
+   ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
+   ``{"stats": ...}`` and one ``{"examples": ...}`` record, one
+   ``{"kernels": [...]}`` record (B1-B8, with ``launches_by_path`` for
+   every path), then ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -971,8 +992,20 @@ def main() -> int:
     eng.generate(prompts, 8)
     bare = sorted(m["step_seconds"] for m in eng.step_metrics)
     runs["no_wire"] = {"decode_step_ms_median": bare[len(bare) // 2] * 1e3}
+    # the step's device time at batch 4 over PROMPT + NEW cache slots,
+    # the shape phase 16's roofline bound is reckoned at
+    with torch.no_grad():
+        _, dcaches = prefill(params, {"tokens": prompts}, cfg, PROMPT + NEW)
+        nxt = prompts[:, -1:]
+        (runs["no_wire"]["decode_step_device_ms"],
+         runs["no_wire"]["decode_step_device_ops"]) = device_ms(
+            torch, lambda: decode_step(params, nxt, dcaches, PROMPT, cfg)[0],
+            3)
+    del dcaches
     print(f"no wire: decode step "
-          f"{runs['no_wire']['decode_step_ms_median']:.3f} ms [{card}]")
+          f"{runs['no_wire']['decode_step_ms_median']:.3f} ms, "
+          f"{runs['no_wire']['decode_step_device_ms']:.3f} ms device "
+          f"[{card}]")
 
     # Output check on a small input: one decode step after a prefill
     # agrees with the full-sequence forward at full width (bf16).
@@ -1082,7 +1115,27 @@ def main() -> int:
     phase("15. per-shard statistics (18 x 64 shards) and the two encoders")
     stats_rec, stats_launches = stats_phase(torch, dev, card, build)
 
-    # ------------------------------------------------------ 16. records
+    # ------------------------ 16. the examples, and the timed steps' bounds
+    phase("16. examples and the roofline")
+    measured = {
+        "gemma2-2b decode (phase 4)": (
+            "gemma2-2b", "decode", PROMPT + NEW, BATCH, 1,
+            runs["no_wire"]["decode_step_device_ms"]),
+        "gemma2-2b train (phase 7)": (
+            "gemma2-2b", "train", TRAIN_SEQ, TRAIN_BATCH,
+            trained["grad_accum"],
+            trained["profile"]["device_busy_ms_per_step"]),
+        "internvl2-26b decode (phase 13)": (
+            "internvl2-26b", "decode", PREFIX + PROMPT + NEW, BATCH, 1,
+            vlm_rec["serve"]["decode_step_device_ms"]),
+        "hubert-xlarge train (phase 14)": (
+            "hubert-xlarge", "train", HUBERT_SEQ, HUBERT_BATCH,
+            audio_rec["train"]["grad_accum"],
+            audio_rec["train"]["profile"]["device_busy_ms_per_step"]),
+    }
+    ex_rec, ex_launches = examples_phase(torch, dev, card, build, measured)
+
+    # ------------------------------------------------------ 17. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1097,7 +1150,8 @@ def main() -> int:
              "lifecycle": life_launches, "moe": moe_launches,
              "deepseek": ds_launches, **rec_launches,
              "internvl": vlm_launches, "hubert": audio_launches,
-             "hubert_train": audio_train_launches, "stats": stats_launches}
+             "hubert_train": audio_train_launches, "stats": stats_launches,
+             "examples": ex_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -1147,6 +1201,7 @@ def main() -> int:
     print(json.dumps({"card": card, "prefix": {"internvl2-26b": vlm_rec,
                                                "hubert-xlarge": audio_rec}}))
     print(json.dumps({"card": card, "stats": stats_rec}))
+    print(json.dumps({"card": card, "examples": ex_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2426,9 +2481,9 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
          f"builds for the epochs {sorted(built)}")
     need(launches["histogram256"] > 0, "train: kernel B5 was not launched")
 
-    # ---- the repeated batch: 4 extra steps at a constant lr, the 2nd
-    # and 3rd under the profiler, the host syncs of the 4th counted; the
-    # loss must fall.  The lr is a tenth of the run's peak: a constant
+    # ---- the repeated batch: 4 extra steps at a constant lr (in the
+    # run's microbatches), the 2nd and 3rd under the profiler, the host
+    # syncs of the 4th counted; the loss must fall.  The lr is a tenth of the run's peak: a constant
     # 1e-3 overshoots on one batch at this width (7.75, 11.76, 11.94,
     # 10.22 in a first run on the card)
     state = run["state"]
@@ -2465,7 +2520,7 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
     del grads, probe_new, probe_boot
 
     extra = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR / 10),
-                            comp_spec=spec_new)
+                            grad_accum=grad_accum, comp_spec=spec_new)
     box = {"state": state}
 
     def one():
@@ -2493,10 +2548,10 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
     # on the last state, which nothing reads after this; cloned moments
     # would add 20 GB at this width
     st = box["state"]
-    g = loss_and_grads(st.params, data, cfg)[2]
+    g = loss_and_grads(st.params, data, cfg, grad_accum)[2]
     parts = {
         "forward_backward": steps_profile(torch, lambda: loss_and_grads(
-            st.params, data, cfg)[0], 2)[1],
+            st.params, data, cfg, grad_accum)[0], 2)[1],
         "grad_probe": steps_profile(torch, lambda: grad_payload_stats(
             g, spec_new)["coded_bits"], 2)[1],
         "adamw": steps_profile(torch, lambda: adamw_update(
@@ -3683,6 +3738,8 @@ def deepseek_phase(torch, dev, card, build):
         torch, dev, full.reduced(dtype=torch.float32), "deepseek", card)
     rec["reduced_card_vs_cpu_bf16"] = reduced_step_card_vs_cpu(
         torch, dev, full.reduced(), "deepseek", card, gate=False)
+    rec["reduced_bf16_routing"] = routing_flips(torch, dev, full.reduced(),
+                                                card)
     rec["seconds"] = time.perf_counter() - t_phase
     return rec, launches
 
@@ -4580,6 +4637,167 @@ def stats_phase(torch, dev, card, build):
     del w, hi
     torch.cuda.empty_cache()
     return rec, launches
+
+
+# ------------------------------------------ examples and the roofline (16)
+SFT_ARGS = ["--steps", "100", "--rebuild-every", "25"]
+# a measured step against its analytic bound: a share past this means
+# the count is wrong (the bound is the least time the work can take)
+SHARE_LIMIT = 1.05
+
+
+def examples_phase(torch, dev, card, build, measured: dict):
+    """Phase 16: the three examples' ``main`` on the card (launch counts
+    reset just before and read just after), then ``one_card_bound`` of
+    each step the script timed (``measured``: name -> (config, kind,
+    sequence or cache slots, batch, grad_accum, device ms)) beside its
+    device ms.  Returns the record and the examples' launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (quickstart, serve_compressed,
+                                      train_sft_compressed)
+    from repro_torch.launch.dryrun import one_card_bound
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    qs = quickstart.main([], device=dev)
+    sv = serve_compressed.main([], device=dev)
+    sft = train_sft_compressed.main(SFT_ARGS, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    ex_s = time.perf_counter() - t_phase
+    for p, r in qs["planes"].items():
+        need(r["lossless"] and r["coded_bits"] == r["histogram_dot_lengths"],
+             f"quickstart {p}: lossless {r['lossless']}, coded bits "
+             f"{r['coded_bits']} vs B5 . lengths {r['histogram_dot_lengths']}")
+    g = sv["gather"]
+    need(g["bitexact"] and g["coded_bits"] == 8 * g["histogram_dot_lengths"],
+         f"serve_compressed gather: bit-exact {g['bitexact']}, coded bits "
+         f"{g['coded_bits']} vs 8 x B5 . lengths {g['histogram_dot_lengths']}")
+    need(sv["ring"]["finite"] and sv["ring"]["ranks_agree"],
+         f"serve_compressed ring: {sv['ring']}")
+    losses = sft["losses"]
+    need(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+         f"sft: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    first = sft["rebuilds"][0]
+    need(first["coded_over_raw_after"] < first["coded_over_raw_before"],
+         f"sft: the first rebuild did not code the gradients smaller "
+         f"({first})")
+    for k in ("encode_lookup", "pack_blocks", "decode_chunks_canonical",
+              "decode_chunks_multisym", "histogram256"):
+        need(launches[k] > 0, f"examples: kernel {k} was not launched")
+    print(f"examples: quickstart fixed {qs['fixed_compressibility']:.4f} vs "
+          f"three-stage {qs['oracle_compressibility']:.4f}; serve gather "
+          f"coded/raw {g['coded_bits'] / g['raw_bits']:.4f}, ring "
+          f"{sv['ring']['hops']} hops; sft {sft['params']:,} params, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {sft['steps']} steps in "
+          f"{sft['seconds']:.1f} s, rebuild at step {first['step']}: "
+          f"gradient coded/raw {first['coded_over_raw_before']:.4f} -> "
+          f"{first['coded_over_raw_after']:.4f}; launches {launches}; "
+          f"{ex_s:.1f} s [{card}]")
+
+    roof = {}
+    for name, (arch, kind, seq, batch, ga, dev_ms) in measured.items():
+        b = one_card_bound(get_config(arch), kind=kind, seq_len=seq,
+                           global_batch=batch, grad_accum=ga)
+        share = b["bound_s"] * 1e3 / dev_ms
+        roof[name] = {"arch": arch, "kind": kind, "seq_len": seq,
+                      "batch": batch, "grad_accum": ga,
+                      "compute_ms": b["analytic_compute_s"] * 1e3,
+                      "memory_ms": b["analytic_memory_s"] * 1e3,
+                      "bound_ms": b["bound_s"] * 1e3,
+                      "bound_by": ("compute" if b["analytic_compute_s"]
+                                   >= b["analytic_memory_s"] else "memory"),
+                      "device_ms": dev_ms, "share": share,
+                      "analytic_flops": b["analytic_flops"],
+                      "analytic_bytes": b["analytic_bytes"]}
+        print(f"roofline {name}: bound {b['bound_s'] * 1e3:.3f} ms "
+              f"({roof[name]['bound_by']}: compute "
+              f"{roof[name]['compute_ms']:.3f}, memory "
+              f"{roof[name]['memory_ms']:.3f}) vs {dev_ms:.3f} ms device, "
+              f"share {share:.4f} [{card}]")
+        need(share <= SHARE_LIMIT, f"roofline {name}: the measured step "
+             f"takes {share:.4f} of its analytic bound's time, past "
+             f"{SHARE_LIMIT}: the count is wrong")
+    rec = {"quickstart": qs, "serve_compressed": {
+               k: v for k, v in sv.items() if k != "first_request"},
+           "sft": {k: v for k, v in sft.items()
+                   if k not in ("losses", "coded_over_raw")},
+           "sft_losses_first_last": [losses[0], losses[-1]],
+           "examples_s": ex_s, "roofline": roof,
+           "seconds": time.perf_counter() - t_phase}
+    return rec, launches
+
+
+def routing_flips(torch, dev, rcfg, card) -> dict:
+    """The reduced DeepSeek's bf16 train step, card vs CPU, read three
+    ways (report only): the routing flips between the two devices' bf16
+    forwards (a token whose top-k expert set differs in any MoE layer),
+    the step deviation with the flipped tokens masked out of the loss,
+    and the first op of the forward past a bf16 ulp
+    (``first_divergence``)."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.models import forward_train, model_init, moe
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (STEP_TOL, make_train_step,
+                                        step_deviation, train_state_init)
+
+    rparams = model_init(rcfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    rbatch = {k: torch.from_numpy(v) for k, v in next(SyntheticDataset(
+        rcfg, DataConfig(TRAIN_BATCH, 32, seed=SEED))).items()}
+    routes = {}
+    inner = moe._route_probs
+
+    def taped(params, xf, cfg):
+        out = inner(params, xf, cfg)
+        routes[where].append(out[1].sort(-1).values.cpu())
+        return out
+
+    moe._route_probs = taped
+    try:
+        for where in ("cpu", dev):
+            routes[where] = []
+            p = tree_map(lambda t: t.to(where), rparams)
+            with torch.no_grad():
+                forward_train(p, {k: v.to(where) for k, v in rbatch.items()},
+                              rcfg)
+    finally:
+        moe._route_probs = inner
+    flips = torch.zeros(rbatch["labels"].shape, dtype=torch.bool)
+    for a, b in zip(routes["cpu"], routes[dev]):
+        flips |= (a != b).any(-1).reshape(flips.shape)
+    n_flips = int(flips.sum())
+
+    def deviation(batch):
+        step = make_train_step(rcfg, AdamWConfig(lr=TRAIN_LR))
+        got = {}
+        for where in ("cpu", dev):
+            st = train_state_init(tree_map(lambda t: t.to(where), rparams))
+            new, m = step(st, {k: v.to(where) for k, v in batch.items()})
+            got[str(where)] = {"loss": float(m["loss"]),
+                               "grad_norm": float(m["grad_norm"]),
+                               "params": tree_map(lambda t: t.cpu(),
+                                                  new.params)}
+        return step_deviation(got[str(dev)], got["cpu"], TRAIN_LR)
+
+    masked = dict(rbatch, loss_mask=(~flips).to(torch.float32))
+    dev_masked = deviation(masked)
+    within = all(v <= STEP_TOL[k] for k, v in dev_masked.items())
+    first = first_divergence(torch, dev, rcfg)
+    rec = {"tokens": flips.numel(), "flipped_tokens": n_flips,
+           "flipped_at": np.argwhere(flips.numpy()).tolist()[:16],
+           "masked_deviation": dev_masked, "masked_within_step_tol": within,
+           "first_divergence": first}
+    print(f"deepseek reduced bf16: {n_flips} of {flips.numel()} tokens "
+          f"route to other experts on the card than on the CPU; the step "
+          f"with them masked out of the loss, card vs CPU: {dev_masked}, "
+          f"within STEP_TOL: {within}; first op past a bf16 ulp: "
+          f"{first['first_beyond_ulp']} [{card}]")
+    return rec
 
 
 def print_train(trained, card) -> None:

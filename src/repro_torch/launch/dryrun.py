@@ -1,13 +1,40 @@
-"""The compressed-ring, codebook-lifecycle and compressed-at-rest
-checks (port of ``repro.launch.dryrun``'s ``--ring-check``,
-``--drift-check`` and ``--memstore-check``; the reference's lowering
-sweep waits for the port's mesh, ROADMAP.md A10).
+"""The sharding plan of every (arch × shape × mesh) combination, and the
+compressed-ring, codebook-lifecycle and compressed-at-rest checks (port
+of ``repro.launch.dryrun``).
 
+    python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
+    python -m repro_torch.launch.dryrun --sweep [--both-meshes]
+        [--multi-pod] [--grad-accum N] [--out plans.json]
     python -m repro_torch.launch.dryrun --ring-check [--device cpu]
         [--codec huffman|qlc]
     python -m repro_torch.launch.dryrun --drift-check [--device cpu]
         [--codec huffman|qlc]
     python -m repro_torch.launch.dryrun --memstore-check [--device cpu]
+
+``plan_combo`` is the counterpart of the reference's ``lower_combo``:
+where the reference lowers and compiles each step with XLA on a forced
+512-device host, the port builds the model, the optimizer state and the
+inputs on the meta device (shapes only: DeepSeek's 671 B parameters in
+a fraction of a second, no memory) and reads the plan from the
+partition specs (``model_pspec``, ``adamw_state_pspec``,
+``input_pspecs``: tensor-parallel params, moments mirroring them) on the
+production mesh (``launch.mesh``, the reference's 16 × 16 and
+2 × 16 × 16 shapes, of H100s).  Each record keeps the reference's keys where they mean the
+same: ``analytic_*`` (``roofline.analytic``, the reference's formulas on
+the port's parameter counts), ``collective_s`` and ``collectives``
+(``roofline.collectives``' schedule, not XLA's partitioner: the two
+packages' collective terms differ by design), ``bottleneck``,
+``roofline_step_s``, ``bytes_per_device`` (params, gradients, optimizer
+state, caches and inputs a device, from the meta shapes and the specs;
+activations and temporaries are not counted), ``hbm_ok`` against
+``H100_SXM.hbm_bytes``, ``status``, ``note``, ``n_devices``,
+``grad_accum`` and ``useful_flops_ratio`` (model FLOPs over the
+analytic FLOPs).  The reference's XLA-only keys (``hlo_flops``,
+``hlo_bytes``, ``compile_s``) have no counterpart.  ``--sweep`` loops
+over the reference's ten ``ARCH_IDS`` (``configs.SWEEP_IDS``) × the four
+``SHAPES`` × the meshes, skips included: 80 records with
+``--both-meshes``, written to ``--out`` in place of what it held.  It
+needs no device.
 
 ``ring_check`` runs the ring collectives (``comm.ring``,
 ``comm.hierarchy``) on a loopback axis of n ranks (payload 4096 a rank,
@@ -56,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import warnings
 from typing import Any, Dict, Optional
@@ -63,10 +91,167 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..comm.compression import histogram256
+from ..configs import ARCH_IDS, SHAPES, SWEEP_IDS
 from ..device import resolve_device
+from ..models.common import pspec_leaves, tree_leaves
 
-__all__ = ["ring_check", "drift_check", "memstore_check", "memck_config",
+__all__ = ["plan_combo", "active_param_count", "one_card_bound",
+           "ring_check", "drift_check", "memstore_check", "memck_config",
            "main"]
+
+
+# ------------------------------------------------------------ the plan
+def active_param_count(cfg, params_shapes) -> int:
+    """Total params minus the inactive routed-expert fraction (MoE), the
+    reference's count: a leaf with ``n_experts`` in its first two dims
+    is an expert leaf."""
+    total = expert = 0
+    for leaf in tree_leaves(params_shapes):
+        total += leaf.numel()
+        if (cfg.n_experts > 1 and leaf.dim() >= 2
+                and cfg.n_experts in tuple(leaf.shape)[:2]):
+            expert += leaf.numel()
+    if cfg.n_experts > 1 and expert:
+        frac = cfg.experts_per_token / cfg.n_experts
+        return int(total - expert * (1.0 - frac))
+    return total
+
+
+def _local_bytes(specs, tensors, sizes, itemsize=None) -> float:
+    """Bytes a device holds of ``tensors`` under ``specs`` (same tree)."""
+    from ..roofline.collectives import spec_shards
+    total = 0.0
+    for spec, t in zip(pspec_leaves(specs), tree_leaves(tensors)):
+        shards = math.prod(spec_shards(e, sizes) for e in spec)
+        total += t.numel() * (itemsize or t.element_size()) / shards
+    return total
+
+
+def _tree_bytes(tensors) -> float:
+    return float(sum(t.numel() * t.element_size()
+                     for t in tree_leaves(tensors)))
+
+
+def plan_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
+               grad_accum: Optional[int] = None,
+               verbose: bool = True) -> Dict[str, Any]:
+    """The roofline record of one combination (see the module docstring),
+    from meta tensors and partition specs alone."""
+    from ..configs import (get_config, input_pspecs, input_specs,
+                           shape_plan, train_grad_accum)
+    from ..models.transformer import model_init, model_pspec
+    from ..optim.adamw import adamw_init, adamw_state_pspec
+    from ..roofline.analysis import model_flops, roofline_report
+    from ..roofline.analytic import analytic_terms
+    from ..roofline.collectives import collective_stats
+    from .mesh import H100_SXM, axes_for, make_production_mesh
+
+    cfg, note = shape_plan(get_config(arch_id), shape_name)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    if cfg is None:
+        return {"arch": arch_id, "shape": shape_name, "mesh": mesh.name,
+                "status": "skipped", "note": note}
+    shape = SHAPES[shape_name]
+    axes = axes_for(mesh)
+    sizes = mesh.shape
+    n_devices = mesh.size
+    n_model = sizes["model"]
+
+    params = model_init(cfg, None, device="meta")
+    pspec = model_pspec(cfg, axes)
+    specs = input_specs(cfg, shape_name)
+    in_pspecs = input_pspecs(cfg, shape_name, axes)
+
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_active = active_param_count(cfg, params)
+    mem = {"params": _local_bytes(pspec, params, sizes)}
+    ga = 1
+    if shape.kind == "decode":
+        mem["caches"] = _local_bytes(in_pspecs["caches"], specs["caches"],
+                                     sizes)
+        mem["inputs"] = _local_bytes(in_pspecs["tokens"], specs["tokens"],
+                                     sizes) + 4.0       # + pos
+        n_tokens = shape.global_batch
+        lead = in_pspecs["tokens"]
+    else:
+        if shape.kind == "train":
+            ga = grad_accum if grad_accum is not None else train_grad_accum(
+                arch_id)
+            opt = adamw_init(params)
+            opt_pspec = adamw_state_pspec(pspec)
+            mem["grads"] = _local_bytes(pspec, params, sizes,
+                                        itemsize=4 if ga > 1 else None)
+            mem["optimizer"] = (_local_bytes(opt_pspec.m, opt.m, sizes)
+                                + _local_bytes(opt_pspec.v, opt.v, sizes)
+                                + 4.0)                   # + step
+        mem["inputs"] = _local_bytes(in_pspecs["batch"], specs["batch"],
+                                     sizes)
+        n_tokens = shape.global_batch * shape.seq_len
+        lead = next(iter(in_pspecs["batch"].values()))
+    mem["peak_hbm_est"] = sum(mem.values())
+    entry = lead[0] if len(lead) else None        # the batch dim's axes
+    batch_axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+    cache_bytes = (_tree_bytes(specs["caches"]) if shape.kind == "decode"
+                   else 0.0)
+    at = analytic_terms(
+        cfg, kind=shape.kind, seq_len=shape.seq_len,
+        global_batch=shape.global_batch, n_params=n_params,
+        n_active_params=n_active, n_devices=n_devices, model_shards=n_model,
+        data_shards=n_devices // n_model, hw=H100_SXM,
+        cache_bytes_total=cache_bytes, grad_accum=ga)
+    coll = collective_stats(
+        cfg, kind=shape.kind, seq_len=shape.seq_len,
+        global_batch=shape.global_batch, sizes=sizes, param_pspec=pspec,
+        params=params, batch_axes=batch_axes, grad_accum=ga, hw=H100_SXM)
+    mf = model_flops(n_active, n_tokens, train=shape.kind == "train")
+    rec = roofline_report(
+        arch=arch_id, shape=shape_name, mesh_name=mesh.name,
+        n_devices=n_devices, terms=at, coll=coll,
+        model_flops_total=mf, bytes_per_device=mem, note=note).to_dict()
+    rec.update(at)
+    terms = {"compute": at["analytic_compute_s"],
+             "memory": at["analytic_memory_s"],
+             "collective": rec["collective_s"]}
+    rec["bottleneck"] = max(terms, key=terms.get)
+    rec["roofline_step_s"] = max(terms.values())
+    rec.update({"status": "ok", "n_params": n_params,
+                "n_active_params": n_active,
+                "grad_accum": ga if shape.kind == "train" else None,
+                "n_devices": n_devices,
+                "hbm_ok": mem["peak_hbm_est"] <= H100_SXM.hbm_bytes})
+    if verbose:
+        print(f"[dryrun] {arch_id:<24} {shape_name:<12} {mesh.name:<8} "
+              f"flops/dev={at['analytic_flops']:.3e} "
+              f"wire/dev={rec['wire_bytes']:.3e}B "
+              f"hbm/dev={mem['peak_hbm_est'] / 1e9:.1f}GB "
+              f"bottleneck={rec['bottleneck']} {note}", flush=True)
+    return rec
+
+
+def one_card_bound(cfg, *, kind: str, seq_len: int, global_batch: int,
+                   grad_accum: int = 1) -> Dict[str, Any]:
+    """``analytic_terms`` of one step on one device (no collective), at
+    the exact shape of a step that runs: ``seq_len`` is the train or
+    prefill sequence, or a decode step's cache slots (its caches built
+    on the meta device).  Adds ``bound_s``, the larger of the compute
+    and memory terms."""
+    from ..models.transformer import init_caches, model_init
+    from ..roofline.analytic import analytic_terms
+    from .mesh import H100_SXM
+    params = model_init(cfg, None, device="meta")
+    cache_bytes = (_tree_bytes(init_caches(cfg, global_batch, seq_len,
+                                           device="meta"))
+                   if kind == "decode" else 0.0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    at = analytic_terms(
+        cfg, kind=kind, seq_len=seq_len, global_batch=global_batch,
+        n_params=n_params, n_active_params=active_param_count(cfg, params),
+        n_devices=1, model_shards=1, data_shards=1, hw=H100_SXM,
+        cache_bytes_total=cache_bytes, grad_accum=grad_accum)
+    at["bound_s"] = max(at["analytic_compute_s"], at["analytic_memory_s"])
+    at["n_params"] = n_params
+    return at
 
 
 def ring_check(n: int = 8, payload: int = 4096, chunk: int = 512,
@@ -493,13 +678,27 @@ def main(argv: Optional[list] = None) -> None:
                          "and KV round trips, fused decode_matmul vs its "
                          "plain version, and coded-serve == raw-serve")
     ap.add_argument("--device", default=None,
-                    help="device to run on (default: cuda; 'cpu' runs "
-                         "the kernels' plain versions)")
-    ap.add_argument("--out", default=None, help="write the record as JSON")
+                    help="device to run the checks on (default: cuda; "
+                         "'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--arch", choices=ARCH_IDS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--sweep", action="store_true",
+                    help="plan every arch of the reference's sweep x "
+                         "every shape")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--grad-accum", type=int, default=None)
+    ap.add_argument("--out", default=None,
+                    help="write the check records, or the plan records "
+                         "(a list), as JSON")
     args = ap.parse_args(argv)
-    if not (args.memstore_check or args.ring_check or args.drift_check):
-        ap.error("nothing to do: pass --ring-check, --drift-check or "
-                 "--memstore-check")
+    checks = args.memstore_check or args.ring_check or args.drift_check
+    if not checks and (args.sweep or args.arch or args.shape):
+        _plan_main(ap, args)
+        return
+    if not checks:
+        ap.error("nothing to do: pass --ring-check, --drift-check, "
+                 "--memstore-check, --sweep or --arch and --shape")
     rec = {}
     if args.ring_check:
         rec["ring_check"] = ring_check(codec=args.codec,
@@ -513,6 +712,42 @@ def main(argv: Optional[list] = None) -> None:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1, default=str)
     if any(r["status"] != "ok" for r in rec.values()):
+        raise SystemExit(1)
+
+
+
+def _plan_main(ap, args) -> None:
+    """``--sweep`` / ``--arch --shape``: plan records, written to
+    ``--out``."""
+    import os
+    import traceback
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    if args.sweep:
+        combos = [(a, s, mp) for a in SWEEP_IDS for s in SHAPES
+                  for mp in meshes]
+    else:
+        if not (args.arch and args.shape):
+            ap.error("need --arch and --shape (or --sweep)")
+        combos = [(args.arch, args.shape, mp) for mp in meshes]
+    results = []
+    failures = 0
+    for arch, shape, mp in combos:
+        mesh_name = "2x16x16" if mp else "16x16"
+        try:
+            rec = plan_combo(arch, shape, multi_pod=mp,
+                             grad_accum=args.grad_accum)
+        except Exception as e:      # a failure here is a fault in the plan
+            traceback.print_exc()
+            rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                   "status": "FAILED", "error": f"{type(e).__name__}: {e}"}
+            failures += 1
+        results.append(rec)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1, default=str)
+    print(f"[dryrun] finished: {len(results)} records, {failures} failures")
+    if failures:
         raise SystemExit(1)
 
 

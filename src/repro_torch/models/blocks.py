@@ -27,20 +27,23 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from .common import ModelConfig
-from .layers import (attn_apply, attn_cache_init, attn_decode, attn_init,
-                     attn_prefill, mlp_apply, mlp_init, rmsnorm_apply,
-                     rmsnorm_init)
-from .mla import mla_apply, mla_cache_init, mla_decode, mla_init, mla_prefill
+from .common import Axes, ModelConfig, PSpec
+from .layers import (attn_apply, attn_cache_init, attn_cache_pspec,
+                     attn_decode, attn_init, attn_prefill, attn_pspec,
+                     mlp_apply, mlp_init, mlp_pspec, rmsnorm_apply,
+                     rmsnorm_init, rmsnorm_pspec)
+from .mla import (mla_apply, mla_cache_init, mla_cache_pspec, mla_decode,
+                  mla_init, mla_prefill, mla_pspec)
 from .moe import (moe_apply, moe_apply_a2a_block, moe_apply_eshard,
-                  moe_decode, moe_init, moe_prefill)
-from .rglru import (rglru_apply, rglru_cache_init, rglru_decode, rglru_init,
-                    rglru_prefill)
-from .ssm import (mamba_apply, mamba_cache_init, mamba_decode, mamba_init,
-                  mamba_prefill)
+                  moe_decode, moe_init, moe_prefill, moe_pspec)
+from .rglru import (rglru_apply, rglru_cache_init, rglru_cache_pspec,
+                    rglru_decode, rglru_init, rglru_prefill, rglru_pspec)
+from .ssm import (mamba_apply, mamba_cache_init, mamba_cache_pspec,
+                  mamba_decode, mamba_init, mamba_prefill, mamba_pspec)
 
-__all__ = ["BLOCK_KINDS", "block_init", "block_apply", "block_cache_init",
-           "block_decode", "block_prefill"]
+__all__ = ["BLOCK_KINDS", "block_init", "block_pspec", "block_apply",
+           "block_cache_init", "block_cache_pspec", "block_decode",
+           "block_prefill"]
 
 # kind → (mixer, windowed, ffn), the reference's table
 _TABLE = {"attn": ("gqa", False, "dense"), "local": ("gqa", True, "dense"),
@@ -60,17 +63,22 @@ class _Mixer(NamedTuple):
     cache_init: Callable
     decode: Callable
     prefill: Callable
+    pspec: Callable
+    cache_pspec: Callable
     windowed: bool = False          # takes ``window=`` (the attentions)
 
 
 _MIXERS = {"gqa": _Mixer(attn_init, attn_apply, attn_cache_init,
-                         attn_decode, attn_prefill, True),
+                         attn_decode, attn_prefill, attn_pspec,
+                         attn_cache_pspec, True),
            "mla": _Mixer(mla_init, mla_apply, mla_cache_init, mla_decode,
-                         mla_prefill, True),
+                         mla_prefill, mla_pspec, mla_cache_pspec, True),
            "rec": _Mixer(rglru_init, rglru_apply, rglru_cache_init,
-                         rglru_decode, rglru_prefill),
+                         rglru_decode, rglru_prefill, rglru_pspec,
+                         rglru_cache_pspec),
            "mamba": _Mixer(mamba_init, mamba_apply, mamba_cache_init,
-                           mamba_decode, mamba_prefill)}
+                           mamba_decode, mamba_prefill, mamba_pspec,
+                           mamba_cache_pspec)}
 _MOE_IMPLS = ("scatter", "eshard", "a2a")
 
 
@@ -95,6 +103,19 @@ def block_init(kind: str, cfg: ModelConfig, generator, device):
         p["norm_ffn"] = rmsnorm_init(cfg, device)
         p["ffn"] = (moe_init(cfg, generator, device) if ffn == "moe"
                     else mlp_init(cfg, generator, device))
+    return p
+
+
+def block_pspec(kind: str, cfg: ModelConfig, axes: Axes):
+    """The partition specs of ``block_init``'s tree (the reference's
+    ``block_pspec``)."""
+    mixer, _, ffn = _parse(kind)
+    p: Dict[str, Any] = {"norm_mix": rmsnorm_pspec(cfg, axes),
+                         "mixer": _MIXERS[mixer].pspec(cfg, axes)}
+    if ffn != "none":
+        p["norm_ffn"] = rmsnorm_pspec(cfg, axes)
+        p["ffn"] = (moe_pspec(cfg, axes) if ffn == "moe"
+                    else mlp_pspec(cfg, axes))
     return p
 
 
@@ -136,6 +157,14 @@ def block_cache_init(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
                 "moe_counts": torch.zeros((batch, cfg.n_experts),
                                           dtype=torch.int32, device=device)}
     return cache
+
+
+def block_cache_pspec(kind: str, cfg: ModelConfig, axes: Axes):
+    mixer, _, ffn = _parse(kind)
+    pspec = _MIXERS[mixer].cache_pspec(cfg, axes)
+    if ffn == "moe":
+        return {"mixer": pspec, "moe_counts": PSpec(None, None)}
+    return pspec
 
 
 def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):

@@ -15,9 +15,10 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-__all__ = ["BlockGroup", "ModelConfig", "truncated_normal_init",
-           "tree_map", "tree_leaves", "tree_unflatten", "tree_stack",
-           "tree_index"]
+__all__ = ["BlockGroup", "ModelConfig", "Axes", "PSpec",
+           "shard_or_replicate", "pspec_map", "pspec_leaves",
+           "truncated_normal_init", "tree_map", "tree_leaves",
+           "tree_unflatten", "tree_stack", "tree_index"]
 
 
 @dataclass(frozen=True)
@@ -110,6 +111,16 @@ class ModelConfig:
             kinds = kinds + g.pattern * g.repeats
         return kinds
 
+    @property
+    def is_decoder(self) -> bool:
+        return self.causal
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing for every layer kind?"""
+        full_attn = {"attn", "attn_moe", "mla", "mla_moe"}
+        return all(k not in full_attn for k in self.layer_kinds)
+
     def with_sliding_window(self, window: int) -> "ModelConfig":
         """The long-context variant: every full-attention kind becomes
         its windowed twin, as the reference's does."""
@@ -164,11 +175,76 @@ class ModelConfig:
         return replace(self, **defaults)
 
 
+@dataclass(frozen=True)
+class Axes:
+    """Mesh axis names and sizes the ``*_pspec`` functions read (the
+    reference's ``Axes``)."""
+    data: str = "data"
+    model: str = "model"
+    model_size: int = 1
+    extra_data: Tuple[str, ...] = ()   # ("pod",) in the multi-pod mesh
+
+    @property
+    def data_axes(self):
+        return self.extra_data + (self.data,)
+
+
+class PSpec(tuple):
+    """A partition spec: one entry a tensor dim, each ``None``
+    (replicated), a mesh-axis name or a tuple of names (sharded over
+    their product), as ``jax.sharding.PartitionSpec`` holds them: a
+    one-name tuple is stored as the name, an empty one as ``None``."""
+
+    def __new__(cls, *parts):
+        def norm(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else p[0] if len(p) == 1 else p
+            return p
+        return super().__new__(cls, tuple(norm(p) for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PSpec{tuple.__repr__(self)}"
+
+
+def shard_or_replicate(n: int, axes: Axes) -> Optional[str]:
+    """Model-axis name if ``n`` divides it, else None (replicate)."""
+    return axes.model if axes.model_size and n % axes.model_size == 0 else None
+
+
+def pspec_map(fn, tree, *rest):
+    """``fn`` over the ``PSpec`` leaves of a pspec tree (and the same
+    places of the trees in ``rest``, which follow its structure), where
+    ``tree_map`` would walk into a spec, which is a tuple."""
+    if isinstance(tree, PSpec):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: pspec_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        out = [pspec_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(
+            out)
+    raise TypeError(f"not a pspec tree leaf: {tree!r}")
+
+
+def pspec_leaves(tree) -> List[PSpec]:
+    """The ``PSpec`` leaves in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, PSpec):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in pspec_leaves(tree[k])]
+    return [x for v in tree for x in pspec_leaves(v)]
+
+
 def truncated_normal_init(shape, dtype, scale: float,
                           generator: torch.Generator, device) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in float32
     and cast — the reference's shapes and scales (its draws come from
-    ``jax.random`` and differ)."""
+    ``jax.random`` and differ).  On the meta device: the shape alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * scale).to(dtype)

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.symbols import xla_cast
-from .common import ModelConfig, truncated_normal_init
+from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
+                     truncated_normal_init)
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -33,6 +34,10 @@ _NEG = torch.finfo(torch.float32).min
 def rmsnorm_init(cfg: ModelConfig, device, width: Optional[int] = None):
     return {"scale": torch.zeros((width or cfg.d_model,), dtype=torch.float32,
                                  device=device)}
+
+
+def rmsnorm_pspec(cfg: ModelConfig, axes: Axes):
+    return {"scale": PSpec(None)}
 
 
 def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -82,6 +87,17 @@ def attn_init(cfg: ModelConfig, generator, device):
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(cfg, device, hd)
         p["k_norm"] = rmsnorm_init(cfg, device, hd)
+    return p
+
+
+def attn_pspec(cfg: ModelConfig, axes: Axes):
+    mh = shard_or_replicate(cfg.n_heads, axes)
+    mkv = shard_or_replicate(cfg.n_kv_heads, axes)
+    p = {"wq": PSpec(None, mh, None), "wk": PSpec(None, mkv, None),
+         "wv": PSpec(None, mkv, None), "wo": PSpec(mh, None, None)}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_pspec(cfg, axes)
+        p["k_norm"] = rmsnorm_pspec(cfg, axes)
     return p
 
 
@@ -154,6 +170,13 @@ def attn_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
                               device=device)}
 
 
+def attn_cache_pspec(cfg: ModelConfig, axes: Axes):
+    mkv = shard_or_replicate(cfg.n_kv_heads, axes)
+    return {"k": PSpec(axes.data_axes, None, mkv, None),
+            "v": PSpec(axes.data_axes, None, mkv, None),
+            "pos": PSpec(None)}
+
+
 def attn_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
                  window: int = 0):
     """Full-sequence attention that also materializes the KV cache:
@@ -206,6 +229,12 @@ def mlp_init(cfg: ModelConfig, generator, device, d_ff: Optional[int] = None):
             "w_down": w((ff, d), ff ** -0.5)}
 
 
+def mlp_pspec(cfg: ModelConfig, axes: Axes, d_ff: Optional[int] = None):
+    m = shard_or_replicate(d_ff or cfg.d_ff, axes)
+    return {"w_gate": PSpec(None, m), "w_up": PSpec(None, m),
+            "w_down": PSpec(m, None)}
+
+
 def mlp_apply(params, x, cfg: ModelConfig):
     gate = x @ params["w_gate"]
     # jax.nn.gelu defaults to the tanh approximation
@@ -242,6 +271,14 @@ def embed_init(cfg: ModelConfig, generator, device):
         p["head"] = truncated_normal_init((cfg.d_model, cfg.vocab_size),
                                           cfg.dtype, cfg.d_model ** -0.5,
                                           generator, device)
+    return p
+
+
+def embed_pspec(cfg: ModelConfig, axes: Axes):
+    mv = shard_or_replicate(cfg.vocab_size, axes)
+    p = {"table": PSpec(mv, None)}
+    if not cfg.tie_embeddings:
+        p["head"] = PSpec(None, mv)
     return p
 
 

@@ -24,12 +24,13 @@ from __future__ import annotations
 
 import torch
 
-from .common import ModelConfig, truncated_normal_init
+from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
+                     truncated_normal_init)
 from .layers import (_NEG, _seq_mask, cache_cast, rmsnorm_apply,
-                     rmsnorm_init, rope_apply)
+                     rmsnorm_init, rmsnorm_pspec, rope_apply)
 
-__all__ = ["mla_init", "mla_apply", "mla_cache_init", "mla_decode",
-           "mla_prefill"]
+__all__ = ["mla_init", "mla_pspec", "mla_apply", "mla_cache_init",
+           "mla_cache_pspec", "mla_decode", "mla_prefill"]
 
 
 def _dims(cfg: ModelConfig):
@@ -53,6 +54,15 @@ def mla_init(cfg: ModelConfig, generator, device):
             "wk_b": w((kvr, h, dn), kvr ** -0.5),
             "wv_b": w((kvr, h, dv), kvr ** -0.5),
             "wo": w((h, dv, d), (h * dv) ** -0.5)}
+
+
+def mla_pspec(cfg: ModelConfig, axes: Axes):
+    mh = shard_or_replicate(cfg.n_heads, axes)
+    return {"wq_a": PSpec(None, None), "q_norm": rmsnorm_pspec(cfg, axes),
+            "wq_b": PSpec(None, mh, None), "wkv_a": PSpec(None, None),
+            "kv_norm": rmsnorm_pspec(cfg, axes),
+            "wk_b": PSpec(None, mh, None), "wv_b": PSpec(None, mh, None),
+            "wo": PSpec(mh, None, None)}
 
 
 def _project_q(params, x, cfg: ModelConfig, positions):
@@ -108,6 +118,14 @@ def mla_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
                                  dtype=dt, device=device),
             "pos": torch.full((slots,), -1, dtype=torch.int32,
                               device=device)}
+
+
+def mla_cache_pspec(cfg: ModelConfig, axes: Axes):
+    """The latent cache is not head-sharded (MLA's memory win): it is
+    replicated over the model axis and sharded on batch."""
+    return {"ckv": PSpec(axes.data_axes, None, None),
+            "krope": PSpec(axes.data_axes, None, None),
+            "pos": PSpec(None)}
 
 
 def mla_decode(params, x, cache, pos: int, cfg: ModelConfig, *,

@@ -36,10 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, truncated_normal_init
-from .layers import mlp_apply, mlp_init
+from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
+                     truncated_normal_init)
+from .layers import mlp_apply, mlp_init, mlp_pspec
 
-__all__ = ["moe_init", "moe_apply", "moe_prefill", "moe_decode",
+__all__ = ["moe_init", "moe_pspec", "moe_apply", "moe_prefill", "moe_decode",
            "moe_apply_a2a", "moe_apply_a2a_block", "moe_apply_eshard",
            "configure_a2a_wire", "a2a_wire_fingerprint", "use_mesh",
            "current_mesh", "moe_capacity", "moe_stream_capacity",
@@ -93,6 +94,16 @@ def moe_init(cfg: ModelConfig, generator, device):
 
 
 # -------------------------------------------------------------- routing
+def moe_pspec(cfg: ModelConfig, axes: Axes):
+    me = shard_or_replicate(cfg.n_experts, axes)
+    p = {"router": PSpec(None, None), "w_gate": PSpec(me, None, None),
+         "w_up": PSpec(me, None, None), "w_down": PSpec(me, None, None)}
+    if cfg.n_shared_experts > 0:
+        p["shared"] = mlp_pspec(cfg, axes,
+                                d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    return p
+
+
 def _route_probs(params, xf, cfg: ModelConfig):
     """Router in float32: (N, d) → (topw, topi, probs)."""
     logits = xf.to(torch.float32) @ params["router"]            # (N, E)

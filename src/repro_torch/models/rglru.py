@@ -28,11 +28,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, truncated_normal_init
+from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
+                     truncated_normal_init)
 from .layers import gelu_tanh
 
-__all__ = ["rglru_init", "rglru_apply", "rglru_cache_init", "rglru_decode",
-           "rglru_prefill"]
+__all__ = ["rglru_init", "rglru_pspec", "rglru_apply", "rglru_cache_init",
+           "rglru_cache_pspec", "rglru_decode", "rglru_prefill"]
 
 _C = 8.0
 _N_BLOCKS = 16
@@ -60,6 +61,16 @@ def rglru_init(cfg: ModelConfig, generator, device):
             "wa": tn((nb, bw, bw), bw ** -0.5),
             "wx": tn((nb, bw, bw), bw ** -0.5),
             "lam": lam, "w_out": tn((w, d), w ** -0.5)}
+
+
+def rglru_pspec(cfg: ModelConfig, axes: Axes):
+    w = _w(cfg)
+    m = shard_or_replicate(w, axes)
+    mb = shard_or_replicate(min(_N_BLOCKS, w), axes)
+    return {"w_in": PSpec(None, m), "w_gate": PSpec(None, m),
+            "conv": PSpec(None, m), "wa": PSpec(mb, None, None),
+            "wx": PSpec(mb, None, None), "lam": PSpec(m),
+            "w_out": PSpec(m, None)}
 
 
 def _block_diag(x, w):
@@ -144,6 +155,12 @@ def rglru_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.conv_width - 1, w),
                                 dtype=dtype or cfg.dtype, device=device)}
+
+
+def rglru_cache_pspec(cfg: ModelConfig, axes: Axes):
+    m = shard_or_replicate(_w(cfg), axes)
+    return {"h": PSpec(axes.data_axes, m),
+            "conv": PSpec(axes.data_axes, None, m)}
 
 
 def rglru_decode(params, u, cache, pos: int, cfg: ModelConfig):

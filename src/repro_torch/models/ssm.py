@@ -28,11 +28,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, truncated_normal_init
-from .layers import rmsnorm_apply, rmsnorm_init, silu
+from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
+                     truncated_normal_init)
+from .layers import rmsnorm_apply, rmsnorm_init, rmsnorm_pspec, silu
 
-__all__ = ["mamba_init", "mamba_apply", "mamba_cache_init", "mamba_decode",
-           "mamba_prefill", "ssd_chunked"]
+__all__ = ["mamba_init", "mamba_pspec", "mamba_apply", "mamba_cache_init",
+           "mamba_cache_pspec", "mamba_decode", "mamba_prefill",
+           "ssd_chunked"]
 
 _CHUNK = 128
 
@@ -64,6 +66,19 @@ def mamba_init(cfg: ModelConfig, generator, device):
             "conv_C": tn((cw, g, n), cw ** -0.5),
             "norm": rmsnorm_init(cfg, device, h * p_),
             "out_proj": tn((h, p_, d), (h * p_) ** -0.5)}
+
+
+def mamba_pspec(cfg: ModelConfig, axes: Axes):
+    mh = shard_or_replicate(_hp(cfg)[0], axes)
+    return {"wz": PSpec(None, mh, None), "wx": PSpec(None, mh, None),
+            "wB": PSpec(None, None, None), "wC": PSpec(None, None, None),
+            "wdt": PSpec(None, mh), "dt_bias": PSpec(mh),
+            "A_log": PSpec(mh), "D": PSpec(mh),
+            "conv_x": PSpec(None, mh, None),
+            "conv_B": PSpec(None, None, None),
+            "conv_C": PSpec(None, None, None),
+            "norm": rmsnorm_pspec(cfg, axes),
+            "out_proj": PSpec(mh, None, None)}
 
 
 def _causal_conv(x, w):
@@ -191,6 +206,14 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, cache_len: int, device,
             "conv_x": torch.zeros((batch, cw - 1, h, p_), **dt),
             "conv_B": torch.zeros((batch, cw - 1, g, n), **dt),
             "conv_C": torch.zeros((batch, cw - 1, g, n), **dt)}
+
+
+def mamba_cache_pspec(cfg: ModelConfig, axes: Axes):
+    mh = shard_or_replicate(_hp(cfg)[0], axes)
+    return {"state": PSpec(axes.data_axes, mh, None, None),
+            "conv_x": PSpec(axes.data_axes, None, mh, None),
+            "conv_B": PSpec(axes.data_axes, None, None, None),
+            "conv_C": PSpec(axes.data_axes, None, None, None)}
 
 
 def _conv_step(tail, xt, w):

@@ -17,29 +17,36 @@ token positions only.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .blocks import (block_apply, block_cache_init, block_decode, block_init,
-                     block_prefill)
-from .common import (ModelConfig, tree_index, tree_leaves, tree_map,
-                     tree_stack, tree_unflatten)
-from .layers import (embed_apply, embed_init, rmsnorm_apply, rmsnorm_init,
-                     unembed_apply)
+from .blocks import (block_apply, block_cache_init, block_cache_pspec,
+                     block_decode, block_init, block_prefill, block_pspec)
+from .common import (Axes, ModelConfig, PSpec, pspec_map, tree_index,
+                     tree_leaves, tree_map, tree_stack, tree_unflatten)
+from .layers import (embed_apply, embed_init, embed_pspec, rmsnorm_apply,
+                     rmsnorm_init, rmsnorm_pspec, unembed_apply)
 from .moe import current_mesh
 
-__all__ = ["model_init", "forward", "forward_train", "init_caches",
-           "prefill", "decode_step", "param_count"]
+__all__ = ["model_init", "model_pspec", "fsdp_pspec", "forward",
+           "forward_train", "init_caches", "cache_pspec", "prefill",
+           "decode_step", "param_count"]
 
 
-def model_init(cfg: ModelConfig, generator: torch.Generator, device=None):
+def model_init(cfg: ModelConfig, generator: Optional[torch.Generator],
+               device=None):
     """Random parameters with the reference's shapes and scales, drawn
     from ``generator`` (which must live on ``device``; CUDA unless
-    named)."""
+    named).  On ``device="meta"`` nothing is drawn or allocated (the
+    shapes alone, for the sharding plan and the roofline), and
+    ``generator`` may be None there only."""
     dev = resolve_device(device)
+    if generator is None and dev.type != "meta":
+        raise ValueError("model_init draws its parameters from a generator;"
+                         " only device='meta' takes generator=None")
     groups = []
     for bg in cfg.blocks:
         subs = tuple(_stacked_init(kind, bg.repeats, cfg, generator, dev)
@@ -54,18 +61,59 @@ def _stacked_init(kind: str, repeats: int, cfg: ModelConfig, generator,
     """``repeats`` blocks of ``kind`` drawn in order, each written into a
     stack allocated at the first draw: the peak is the stack and one
     block, where stacking a list of blocks would hold the stack twice
-    (internvl2-26b's three FFN stacks are 9.66 GB each)."""
+    (internvl2-26b's three FFN stacks are 9.66 GB each).  On the meta
+    device the stack is the first block's shapes, with nothing drawn."""
     first = block_init(kind, cfg, generator, device)
     if repeats == 1:
         return tree_stack([first])
     stack = tree_map(lambda a: a.new_empty((repeats,) + tuple(a.shape)),
                      first)
+    if device.type == "meta":
+        return stack
     for r in range(repeats):
         block = first if r == 0 else block_init(kind, cfg, generator, device)
         for dst, src in zip(tree_leaves(stack), tree_leaves(block)):
             dst[r].copy_(src)
         del block
     return stack
+
+
+def _prepend_axis(tree):
+    return pspec_map(lambda s: PSpec(None, *s), tree)
+
+
+def model_pspec(cfg: ModelConfig, axes: Optional[Axes] = None):
+    """Partition specs of ``model_init``'s tree: Megatron tensor
+    parallelism on the model axis (the reference's ``model_pspec``);
+    each stacked leaf's layer axis is replicated."""
+    axes = axes or Axes()
+    return {"embed": embed_pspec(cfg, axes),
+            "groups": tuple(tuple(_prepend_axis(block_pspec(k, cfg, axes))
+                                  for k in bg.pattern) for bg in cfg.blocks),
+            "final_norm": rmsnorm_pspec(cfg, axes)}
+
+
+def fsdp_pspec(cfg: ModelConfig, axes: Optional[Axes] = None,
+               data_degree: int = 16):
+    """Fully sharded (ZeRO-3) specs (the reference's ``fsdp_pspec``): on
+    top of ``model_pspec``, each leaf's first dim that is unsharded,
+    divisible by ``data_degree`` and at least ``data_degree`` goes on
+    the data axes.  The shapes come from the model built on the meta
+    device."""
+    axes = axes or Axes()
+    shapes = model_init(cfg, None, device="meta")
+    data_axes = axes.extra_data + (axes.data,)
+    tag = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def shard_leaf(spec, leaf):
+        parts = list(spec) + [None] * (leaf.dim() - len(spec))
+        for i, (p, d) in enumerate(zip(parts, leaf.shape)):
+            if p is None and d % data_degree == 0 and d >= data_degree:
+                parts[i] = tag
+                break
+        return PSpec(*parts)
+
+    return pspec_map(shard_leaf, model_pspec(cfg, axes), shapes)
 
 
 def param_count(params) -> int:
@@ -164,6 +212,14 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                           for _ in range(bg.repeats)])
               for kind in bg.pattern)
         for bg in cfg.blocks)
+
+
+def cache_pspec(cfg: ModelConfig, axes: Optional[Axes] = None):
+    """Partition specs of ``init_caches``'s tree: batch on the data
+    axes, heads (or the recurrent width) on the model axis."""
+    axes = axes or Axes()
+    return tuple(tuple(_prepend_axis(block_cache_pspec(k, cfg, axes))
+                       for k in bg.pattern) for bg in cfg.blocks)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -10,8 +10,8 @@ scalar (CUDA turns that into a multiply by the reciprocal), so the CPU
 and the card round as the reference does up to the last bits of its
 ``pow`` and ``cos``.
 
-The reference's partition-spec helpers (``adamw_state_pspec``,
-``zero1_state_pspec``) wait for the port's device mesh (ROADMAP.md A10).
+``adamw_state_pspec`` and ``zero1_state_pspec`` give the state's
+partition specs (the reference's rules, for ``launch.dryrun``'s plan).
 """
 from __future__ import annotations
 
@@ -21,10 +21,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..models.common import tree_leaves, tree_map, tree_unflatten
+from ..models.common import (PSpec, pspec_map, tree_leaves, tree_map,
+                             tree_unflatten)
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "global_norm", "cosine_schedule"]
+           "global_norm", "cosine_schedule", "adamw_state_pspec",
+           "zero1_state_pspec"]
 
 
 @dataclass(frozen=True)
@@ -121,3 +123,38 @@ def cosine_schedule(base_lr: float, warmup: int, total: int
                            0.0, 1.0)
         return warm * (0.5 * (1 + torch.cos(math.pi * prog)))
     return fn
+
+
+def adamw_state_pspec(param_pspec) -> AdamWState:
+    """The moments sharded as their params, the step replicated."""
+    return AdamWState(step=PSpec(), m=param_pspec,
+                      v=pspec_map(lambda s: s, param_pspec))
+
+
+def zero1_state_pspec(param_pspec, params_shapes, axes) -> AdamWState:
+    """ZeRO-1 (the reference's rule): each moment leaf not already on a
+    data axis goes on the data axes at its first dim that is unsharded
+    and divisible by 16 — a nominal 16, whatever the data degree, as the
+    reference's.  ``params_shapes`` is a tree of tensors (the meta
+    device's) in the params' structure."""
+    data_axes = axes.extra_data + (axes.data,)
+
+    def has_data_axis(parts) -> bool:
+        for p in parts:
+            names = p if isinstance(p, tuple) else (p,)
+            if any(n in data_axes for n in names if n):
+                return True
+        return False
+
+    def shard_leaf(spec, leaf):
+        parts = list(spec) + [None] * (leaf.dim() - len(spec))
+        if has_data_axis(parts):       # already data-sharded (FSDP)
+            return PSpec(*parts)
+        for i, (p, d) in enumerate(zip(parts, leaf.shape)):
+            if p is None and d % 16 == 0:
+                parts[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+                break
+        return PSpec(*parts)
+
+    m = pspec_map(shard_leaf, param_pspec, params_shapes)
+    return AdamWState(step=PSpec(), m=m, v=pspec_map(lambda s: s, m))
