@@ -301,12 +301,31 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    two microbatches -- printed beside its device ms with the share
    (bound / measured), which must not pass ``SHARE_LIMIT`` (1.05: past
    it, the count is wrong);
-17. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+17. ``mamba2-780m`` trained at full width and full depth (0.78 B
+   parameters, seed-0 bf16 weights, block remat) at one ``dp_only``
+   device's share of ``train_4k``: 1 x 4096 tokens, ``grad_accum`` 1,
+   AdamW, through ``launch.train.train`` with ``--compress`` semantics
+   for 3 steps (``launches_by_path["mamba2_train"]``: B5 on every
+   gradient leaf and plane).  Checked as phase 7: finite losses,
+   ``grad_raw_bits`` = 16 x 779 989 248, B5 launched; one step's
+   gradients, every leaf and plane, B5 against the plain histogram and
+   the probe's coded bits against hist . lengths; ``launch.hillclimb
+   --pair mamba2`` in-process on the meta device, its perf log printed;
+   the loss falls over 4 steps on one repeated batch, the last three
+   under the profiler (device events only: device ms a step, idle
+   share), one at each SSD chunk the hillclimb tries (``ssm_chunk`` 128,
+   64, 256; the same function, rounded at other points), each printed
+   beside that iteration's plan terms.  The config's own chunk's device
+   ms against ``one_card_bound`` at 1 x 4096 (the dp_only plan's
+   per-device terms, checked equal) within ``SHARE_LIMIT``; the host
+   median of the 3 steps; peak memory;
+18. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
    ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
-   ``{"stats": ...}`` and one ``{"examples": ...}`` record, one
-   ``{"kernels": [...]}`` record (B1-B8, with ``launches_by_path`` for
-   every path), then ``{"ok": true, "device": {...}}``.
+   ``{"stats": ...}``, one ``{"examples": ...}`` and one
+   ``{"mamba2_train": ...}`` record, one ``{"kernels": [...]}`` record
+   (B1-B8, with ``launches_by_path`` for every path), then ``{"ok":
+   true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -530,26 +549,33 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_kernel_us(prof) -> dict:
+    """name -> (summed device us, count) of every kernel, memset and copy
+    in a finished torch.profiler run, read from its raw events
+    (``key_averages()`` builds a Python tree of every event first: tens
+    of seconds for a step of tens of thousands of eager ops)."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return out
+
+
 def device_events(torch, fn, reps: int) -> dict:
     """name -> (device us, count) of every kernel, memset and copy that
     ``reps`` calls of ``fn`` (after one warm-up) ran, summed over the
-    calls, from torch.profiler's device events."""
-    from torch.autograd import DeviceType
+    calls, from torch.profiler's device events (device activity alone:
+    no host events are recorded)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            out[e.key] = (e.self_cuda_time_total if t is None else t,
-                          e.count)
-    return out
+    return device_kernel_us(prof)
 
 
 def device_ms(torch, fn, reps: int):
@@ -1134,8 +1160,13 @@ def main() -> int:
             audio_rec["train"]["profile"]["device_busy_ms_per_step"]),
     }
     ex_rec, ex_launches = examples_phase(torch, dev, card, build, measured)
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ 17. records
+    # ------------ 17. mamba2-780m trained at full width and depth, 1 x 4096
+    phase("17. mamba2-780m trained at full width and depth (1 x 4096)")
+    mamba_rec, mamba_launches = mamba_train_phase(torch, dev, card, build)
+
+    # ------------------------------------------------------ 18. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1151,7 +1182,7 @@ def main() -> int:
              "deepseek": ds_launches, **rec_launches,
              "internvl": vlm_launches, "hubert": audio_launches,
              "hubert_train": audio_train_launches, "stats": stats_launches,
-             "examples": ex_launches}
+             "examples": ex_launches, "mamba2_train": mamba_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -1202,6 +1233,7 @@ def main() -> int:
                                                "hubert-xlarge": audio_rec}}))
     print(json.dumps({"card": card, "stats": stats_rec}))
     print(json.dumps({"card": card, "examples": ex_rec}))
+    print(json.dumps({"card": card, "mamba2_train": mamba_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2399,27 +2431,18 @@ TRAIN_LR, TRAIN_REFRESH = 1e-3, 2
 
 def steps_profile(torch, fn, steps: int):
     """Device time of ``steps`` calls of ``fn`` (each one step, ending in
-    the step's own host sync) under torch.profiler: busy ms a step from
-    the device events, the idle share of the steps' wall time, the
-    port's kernels' ms a step and the top kernels."""
-    from torch.autograd import DeviceType
+    the step's own host sync) under torch.profiler, which records the
+    device's events alone: busy ms a step from the device events, the
+    idle share of the steps' wall time, the port's kernels' ms a step
+    and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         out = [fn() for _ in range(steps)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = {}
-    for e in p.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kern[e.key] = kern.get(e.key, 0.0) + us
+    kern = {k: us for k, (us, _) in device_kernel_us(p).items()}
     busy_ms = sum(kern.values()) / 1e3 / steps
     wall_ms = wall * 1e3 / steps
     short = {}
@@ -2435,22 +2458,47 @@ def steps_profile(torch, fn, steps: int):
                      short.items(), key=lambda kv: -kv[1])[:10])}
 
 
+def grads_held_to_plain(torch, dev, grads, spec, what: str) -> dict:
+    """B5 on both bf16 planes of every gradient leaf against the plain
+    histogram, and the gradient probe's coded bits against hist .
+    lengths in int64 (launches uncounted: a check, not the path).
+    Returns the probe's stats under ``spec``."""
+    from repro_torch.comm.compression import histogram256
+    from repro_torch.core.symbols import bf16_planes
+    from repro_torch.kernels.histogram import histogram256_plain
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.step import grad_payload_stats
+    total = {p: torch.zeros(256, dtype=torch.int64, device=dev)
+             for p in ("lo", "hi")}
+    for leaf in tree_leaves(grads):
+        for p, sym in bf16_planes(leaf).items():
+            h = histogram256(sym)
+            need(torch.equal(h, histogram256_plain(sym)),
+                 f"{what}: B5 != plain on a {tuple(leaf.shape)} gradient "
+                 f"leaf's {p} plane")
+            total[p] += h
+    coded = sum(int((total[p] * torch.from_numpy(spec.lengths_for(p))
+                     .to(dev, torch.int64)).sum()) for p in total)
+    probe = grad_payload_stats(grads, spec)
+    need(all(torch.equal(probe[f"hist_{p}"], total[p]) for p in total)
+         and float(probe["coded_bits"]) == float(coded),
+         f"{what}: grad_coded_bits {float(probe['coded_bits'])} != "
+         f"hist . lengths {coded}")
+    return probe
+
+
 def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, refresh=TRAIN_REFRESH, grad_accum=1):
     """Phases 7 and 14: ``cfg`` (gemma2-2b, hubert-xlarge) trained at full
     width on the card through ``launch.train.train`` (see the module
     docstring), ``batch`` x ``seq``, a refresh check every ``refresh``
     steps.  The reduced step, card vs CPU, is held in bf16.  Returns the record and the main path's launch counts."""
-    from repro_torch.core.symbols import bf16_planes
     from repro_torch.data import DataConfig, SyntheticDataset
-    from repro_torch.kernels.histogram import histogram256_plain
     from repro_torch.launch.train import train
     from repro_torch.models import param_count
-    from repro_torch.models.common import tree_leaves
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
     from repro_torch.train.step import (grad_payload_stats, loss_and_grads,
                                         make_train_step)
-    from repro_torch.comm.compression import histogram256
 
     t_phase = time.perf_counter()
     n_params = param_count(params)
@@ -2494,23 +2542,9 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
 
     # ---- every leaf's B5 histograms against the plain histogram, and
     # the probe's coded bits against hist . lengths in int64
-    total = {p: torch.zeros(256, dtype=torch.int64, device=dev)
-             for p in ("lo", "hi")}
-    for leaf in tree_leaves(grads):
-        for p, sym in bf16_planes(leaf).items():
-            h = histogram256(sym)
-            need(torch.equal(h, histogram256_plain(sym)),
-                 f"train: B5 != plain on a {tuple(leaf.shape)} gradient "
-                 f"leaf's {p} plane")
-            total[p] += h
-    coded = sum(int((total[p] * torch.from_numpy(spec_new.lengths_for(p))
-                     .to(dev, torch.int64)).sum()) for p in total)
-    probe_new = grad_payload_stats(grads, spec_new)
+    probe_new = grads_held_to_plain(torch, dev, grads, spec_new,
+                                    f"{cfg.name} train")
     probe_boot = grad_payload_stats(grads, run["spec"])
-    need(all(torch.equal(probe_new[f"hist_{p}"], total[p]) for p in total)
-         and float(probe_new["coded_bits"]) == float(coded),
-         f"train: grad_coded_bits {float(probe_new['coded_bits'])} != "
-         f"hist . lengths {coded}")
     raw = float(probe_new["raw_bits"])
     ratio_boot = float(probe_boot["coded_bits"]) / raw
     ratio_new = float(probe_new["coded_bits"]) / raw
@@ -4726,6 +4760,164 @@ def examples_phase(torch, dev, card, build, measured: dict):
            "sft_losses_first_last": [losses[0], losses[-1]],
            "examples_s": ex_s, "roofline": roof,
            "seconds": time.perf_counter() - t_phase}
+    return rec, launches
+
+
+# -------------------------------- mamba2-780m trained at full width (17)
+MAMBA_SEQ = 4096              # train_4k's sequence: one dp_only device's
+MAMBA_STEPS = 3               # share of its 256 x 4096 is 1 x 4096
+MAMBA_CHUNKS = (64, 128, 256)  # the hillclimb's SSD chunk iterations
+
+
+def mamba_train_phase(torch, dev, card, build):
+    """Phase 17: ``mamba2-780m`` trained at full width and full depth at
+    1 x 4096 (see the module docstring), beside the hillclimb's plan of
+    the pair.  Returns the record and the main path's launch counts."""
+    import tempfile
+    from dataclasses import replace
+    from repro_torch.configs import get_config, train_grad_accum
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.launch import hillclimb
+    from repro_torch.launch.dryrun import one_card_bound
+    from repro_torch.launch.train import train
+    from repro_torch.models import model_init, param_count
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.perf_log_md import perf_log
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    need(train_grad_accum(cfg.name) == 1 and cfg.remat == "block",
+         "mamba2: not TRAIN_GRAD_ACCUM 1 with block remat")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = model_init(cfg, gen, device=dev)
+    n_params = param_count(params)
+    need(n_params == 779_989_248, f"mamba2: {n_params} params")
+
+    # ---- the main path: launch counts reset just before, read after
+    torch.cuda.synchronize()
+    build.reset_launches()
+    run = train(cfg, steps=MAMBA_STEPS, batch_size=1, seq_len=MAMBA_SEQ,
+                lr=TRAIN_LR, compress=True, refresh_every=0, seed=SEED,
+                device=dev, params=params)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    del params
+    steps = run["steps"]
+    print(f"mamba2-780m train main path: {run['seconds']:.1f} s, launches "
+          f"{launches} [{card}]")
+    need(all(math.isfinite(s["loss"]) for s in steps),
+         f"mamba2 train: a loss is not finite: {[s['loss'] for s in steps]}")
+    need(all(s["grad_raw_bits"] == 16.0 * n_params for s in steps),
+         f"mamba2 train: grad_raw_bits != 16 x {n_params} params")
+    need(launches["histogram256"] > 0,
+         "mamba2 train: kernel B5 was not launched")
+    parts_s = {"init_and_main_path": time.perf_counter() - t_phase}
+
+    # ---- one step's gradients: B5 against plain on every leaf and
+    # plane, the probe's coded bits against hist . lengths
+    spec = run["lifecycle"].spec("grad", "bf16")
+    state = run["state"]
+    data = {k: torch.from_numpy(v).to(dev) for k, v in next(SyntheticDataset(
+        cfg, DataConfig(1, MAMBA_SEQ, seed=SEED + 1))).items()}
+    grads = loss_and_grads(state.params, data, cfg)[2]
+    grads_held_to_plain(torch, dev, grads, spec, "mamba2 train")
+    del grads
+    parts_s["grad_check"] = time.perf_counter() - t_phase - sum(
+        parts_s.values())
+
+    # ---- the hillclimb's plan of the pair, on the meta device
+    with tempfile.TemporaryDirectory() as tmp:
+        plans = {r["iteration"]: r for r in hillclimb.main(
+            ["--pair", "mamba2", "--out", str(Path(tmp) / "hc.json")])}
+    print(perf_log(list(plans.values())))
+    bound = one_card_bound(cfg, kind="train", seq_len=MAMBA_SEQ,
+                           global_batch=1)
+    dp = plans["dp_only"]
+    need(all(math.isclose(dp[k], bound[k], rel_tol=1e-12) for k in (
+        "analytic_compute_s", "analytic_memory_s")),
+         "mamba2: the dp_only device's plan is not one card's step")
+    parts_s["hillclimb"] = time.perf_counter() - t_phase - sum(
+        parts_s.values())
+
+    # ---- the repeated batch: 4 steps at a tenth of the peak lr, the loss
+    # must fall; the last three under the profiler (device events), one
+    # at each SSD chunk the hillclimb tries (the same function, rounded
+    # at other points)
+    steps_at = {q: make_train_step(replace(cfg, ssm_chunk=q), AdamWConfig(
+        lr=TRAIN_LR / 10), comp_spec=spec) for q in MAMBA_CHUNKS}
+    box = {"state": state}
+    del state, run
+
+    def one(q):
+        box["state"], m = steps_at[q](box["state"], data)
+        return float(m["loss"])
+
+    losses = [one(cfg.ssm_chunk)]
+    chunks = {}
+    for q in sorted(MAMBA_CHUNKS, key=lambda q: q != cfg.ssm_chunk):
+        out, pq = steps_profile(torch, lambda: one(q), 1)
+        losses += out
+        it = plans["baseline(chunk=128)" if q == 128 else f"chunk={q}"]
+        chunks[q] = {"device_ms": pq["device_busy_ms_per_step"],
+                     "wall_ms": pq["wall_ms_per_step"],
+                     "idle_share": pq["idle_share"],
+                     "b5_ms": sum(v for k, v in pq[
+                         "port_kernels_ms_per_step"].items() if "hist" in k),
+                     "top_kernels_ms": pq["top_kernels_ms_per_step"],
+                     "plan_compute_ms": it["analytic_compute_s"] * 1e3,
+                     "plan_memory_ms": it["analytic_memory_s"] * 1e3,
+                     "plan_collective_ms": it["collective_s"] * 1e3,
+                     "plan_step_ms": it["roofline_step_s"] * 1e3}
+        print(f"mamba2 ssm_chunk {q}: {chunks[q]['device_ms']:.3f} ms "
+              f"device, {chunks[q]['wall_ms']:.3f} ms wall a step; plan "
+              f"(16 x 16, tp) compute {chunks[q]['plan_compute_ms']:.3f} "
+              f"memory {chunks[q]['plan_memory_ms']:.3f} collective "
+              f"{chunks[q]['plan_collective_ms']:.3f} ms [{card}]")
+    need(losses[-1] < losses[0] and all(map(math.isfinite, losses)),
+         f"mamba2 train: the loss on a repeated batch did not fall: "
+         f"{losses}")
+    parts_s["repeated_batch"] = time.perf_counter() - t_phase - sum(
+        parts_s.values())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del box, steps_at, data
+    torch.cuda.empty_cache()
+
+    base = chunks[cfg.ssm_chunk]
+    dev_ms = base["device_ms"]
+    share = bound["bound_s"] * 1e3 / dev_ms
+    secs = sorted(s["step_seconds"] for s in steps)
+    med = secs[len(secs) // 2]
+    rec = {
+        "model": cfg.name, "params": n_params, "batch": 1,
+        "seq_len": MAMBA_SEQ, "grad_accum": 1, "steps": MAMBA_STEPS,
+        "lr": TRAIN_LR, "losses": [s["loss"] for s in steps],
+        "step_ms_median": med * 1e3, "step_ms_all": [x * 1e3 for x in secs],
+        "tokens_per_s": MAMBA_SEQ / med,
+        "repeated_batch_lr": TRAIN_LR / 10, "repeated_batch_losses": losses,
+        "device_ms": dev_ms, "idle_share": base["idle_share"],
+        "peak_memory_gb": peak_gb,
+        "bound_ms": bound["bound_s"] * 1e3,
+        "bound_compute_ms": bound["analytic_compute_s"] * 1e3,
+        "bound_memory_ms": bound["analytic_memory_s"] * 1e3,
+        "share": share, "ssm_chunks": chunks,
+        "plan_dp_only": {k: dp[k] for k in (
+            "analytic_compute_s", "analytic_memory_s", "collective_s",
+            "roofline_step_s", "bottleneck")},
+        "parts_s": parts_s, "seconds": time.perf_counter() - t_phase}
+    print(f"mamba2-780m train at 1 x {MAMBA_SEQ}: host median "
+          f"{med * 1e3:.1f} ms a step, device {dev_ms:.3f} ms, idle share "
+          f"{base['idle_share']:.4f}, peak {peak_gb:.2f} GB; bound "
+          f"{rec['bound_ms']:.3f} ms (compute {rec['bound_compute_ms']:.3f}, "
+          f"memory {rec['bound_memory_ms']:.3f}), share {share:.4f}; "
+          f"losses {losses}; {rec['seconds']:.1f} s ({parts_s}) [{card}]")
+    need(share <= SHARE_LIMIT, f"mamba2 train: the measured step takes "
+         f"{share:.4f} of its analytic bound's time, past {SHARE_LIMIT}: "
+         f"the count is wrong")
     return rec, launches
 
 

@@ -11,7 +11,8 @@ size.  Every collective runs over an ``Axis`` (``axis.py``): a loopback
 axis stacks all ranks in one process (one card), a process-group axis
 runs one rank a process.
 """
-from .axis import Axis, LoopbackAxis, ProcessGroupAxis, loopback_mesh
+from .axis import (Axis, LoopbackAxis, ProcessGroupAxis, loopback_mesh,
+                   process_group_mesh)
 from .collectives import (all_gather, all_gather_bitexact,
                           all_gather_bitexact_chunked, all_gather_compressed,
                           all_reduce, all_reduce_compressed, all_to_all,

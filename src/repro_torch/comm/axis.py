@@ -35,7 +35,7 @@ import torch
 from .wire import _BITS, rank_sum
 
 __all__ = ["Axis", "LoopbackAxis", "ProcessGroupAxis", "loopback_mesh",
-           "take_rows", "put_rows"]
+           "process_group_mesh", "take_rows", "put_rows"]
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -128,6 +128,16 @@ def loopback_mesh(sizes: Mapping[str, int]) -> Dict[str, LoopbackAxis]:
     batch = tuple(int(v) for v in sizes.values())
     return {name: LoopbackAxis(n, name=name, batch=batch, dim=d)
             for d, (name, n) in enumerate(sizes.items())}
+
+
+def process_group_mesh(device_mesh) -> Dict[str, "ProcessGroupAxis"]:
+    """Named process-group axes of a ``torch.distributed`` ``DeviceMesh``
+    (``launch.mesh.device_mesh`` builds one inside a process group): the
+    axis ``name`` is the group of the ranks that differ from this one
+    only along that mesh dim, as ``loopback_mesh`` names the dims of one
+    stack of ranks."""
+    return {name: ProcessGroupAxis(device_mesh.get_group(name), name=name)
+            for name in device_mesh.mesh_dim_names}
 
 
 class ProcessGroupAxis(Axis):

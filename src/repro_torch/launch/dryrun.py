@@ -16,20 +16,21 @@ where the reference lowers and compiles each step with XLA on a forced
 512-device host, the port builds the model, the optimizer state and the
 inputs on the meta device (shapes only: DeepSeek's 671 B parameters in
 a fraction of a second, no memory) and reads the plan from the
-partition specs (``model_pspec``, ``adamw_state_pspec``,
-``input_pspecs``: tensor-parallel params, moments mirroring them) on the
-production mesh (``launch.mesh``, the reference's 16 × 16 and
-2 × 16 × 16 shapes, of H100s).  Each record keeps the reference's keys where they mean the
-same: ``analytic_*`` (``roofline.analytic``, the reference's formulas on
-the port's parameter counts), ``collective_s`` and ``collectives``
+partition specs (``plan_pspecs``: tensor-parallel params by default,
+``fsdp`` or ``dp_only`` on request; moments mirroring them, or
+``zero1``) on the production mesh (``launch.mesh``, the reference's
+16 × 16 and 2 × 16 × 16 shapes, of H100s).  Each record keeps the
+reference's keys where they mean the same: ``analytic_*``
+(``roofline.analytic``, the reference's formulas on the port's
+parameter counts), ``collective_s`` and ``collectives``
 (``roofline.collectives``' schedule, not XLA's partitioner: the two
 packages' collective terms differ by design), ``bottleneck``,
 ``roofline_step_s``, ``bytes_per_device`` (params, gradients, optimizer
 state, caches and inputs a device, from the meta shapes and the specs;
 activations and temporaries are not counted), ``hbm_ok`` against
 ``H100_SXM.hbm_bytes``, ``status``, ``note``, ``n_devices``,
-``grad_accum`` and ``useful_flops_ratio`` (model FLOPs over the
-analytic FLOPs).  The reference's XLA-only keys (``hlo_flops``,
+``grad_accum``, ``param_sharding``, ``opt_sharding`` and
+``useful_flops_ratio`` (model FLOPs over the analytic FLOPs).  The reference's XLA-only keys (``hlo_flops``,
 ``hlo_bytes``, ``compile_s``) have no counterpart.  ``--sweep`` loops
 over the reference's ten ``ARCH_IDS`` (``configs.SWEEP_IDS``) × the four
 ``SHAPES`` × the meshes, skips included: 80 records with
@@ -95,9 +96,9 @@ from ..configs import ARCH_IDS, SHAPES, SWEEP_IDS
 from ..device import resolve_device
 from ..models.common import pspec_leaves, tree_leaves
 
-__all__ = ["plan_combo", "active_param_count", "one_card_bound",
-           "ring_check", "drift_check", "memstore_check", "memck_config",
-           "main"]
+__all__ = ["plan_combo", "plan_pspecs", "active_param_count",
+           "one_card_bound", "ring_check", "drift_check", "memstore_check",
+           "memck_config", "main"]
 
 
 # ------------------------------------------------------------ the plan
@@ -132,35 +133,98 @@ def _tree_bytes(tensors) -> float:
                      for t in tree_leaves(tensors)))
 
 
+PARAM_SHARDINGS = ("tp", "fsdp", "dp_only")
+OPT_SHARDINGS = ("mirror", "zero1")
+
+
+def plan_pspecs(cfg, shape_name: str, mesh, params, *,
+                param_sharding: str = "tp", opt_sharding: str = "mirror"):
+    """(param specs, optimizer-state specs or None, input specs) of one
+    plan, by the reference's ``lower_combo`` rules:
+
+      tp       ``model_pspec``: Megatron tensor parallelism on "model";
+      fsdp     ``fsdp_pspec`` on top (ZeRO-3), data degree the devices
+               over the model axis;
+      dp_only  every param replicated, the batch dim of every input on
+               all the axes, ``extra_data + (data, model)``;
+      mirror   the moments as their params (``adamw_state_pspec``);
+      zero1    the moments also on the data axes (``zero1_state_pspec``).
+
+    ``params`` are ``cfg``'s tensors on the meta device; the optimizer
+    specs are None unless the shape trains."""
+    from ..configs import input_pspecs
+    from ..models.common import PSpec, pspec_map
+    from ..models.transformer import fsdp_pspec, model_pspec
+    from ..optim.adamw import adamw_state_pspec, zero1_state_pspec
+    from .mesh import axes_for
+    if param_sharding not in PARAM_SHARDINGS:
+        raise ValueError(f"param_sharding {param_sharding!r} not in "
+                         f"{PARAM_SHARDINGS}")
+    if opt_sharding not in OPT_SHARDINGS:
+        raise ValueError(f"opt_sharding {opt_sharding!r} not in "
+                         f"{OPT_SHARDINGS}")
+    axes = axes_for(mesh)
+    in_pspecs = input_pspecs(cfg, shape_name, axes)
+    if param_sharding == "fsdp":
+        pspec = fsdp_pspec(cfg, axes,
+                           data_degree=mesh.size // mesh.shape["model"])
+    elif param_sharding == "dp_only":
+        pspec = pspec_map(lambda s: PSpec(*((None,) * len(s))),
+                          model_pspec(cfg, axes))
+        every = axes.extra_data + (axes.data, axes.model)
+        in_pspecs = pspec_map(
+            lambda s: PSpec(every, *s[1:]) if len(s) and s[0] is not None
+            else s, in_pspecs)
+    else:
+        pspec = model_pspec(cfg, axes)
+    opt_pspec = None
+    if SHAPES[shape_name].kind == "train":
+        opt_pspec = (zero1_state_pspec(pspec, params, axes)
+                     if opt_sharding == "zero1" else adamw_state_pspec(pspec))
+    return pspec, opt_pspec, in_pspecs
+
+
 def plan_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
-               grad_accum: Optional[int] = None,
+               cfg_override=None, grad_accum: Optional[int] = None,
+               opt_sharding: str = "mirror", param_sharding: str = "tp",
                verbose: bool = True) -> Dict[str, Any]:
     """The roofline record of one combination (see the module docstring),
-    from meta tensors and partition specs alone."""
-    from ..configs import (get_config, input_pspecs, input_specs,
-                           shape_plan, train_grad_accum)
-    from ..models.transformer import model_init, model_pspec
-    from ..optim.adamw import adamw_init, adamw_state_pspec
+    from meta tensors and partition specs alone.  ``cfg_override``
+    stands in for the arch's config (the shape's plan still applies);
+    ``param_sharding`` and ``opt_sharding`` pick the specs
+    (``plan_pspecs``).
+
+    The analytic terms count what a device holds: a param shard per
+    model rank under ``tp``, per device under ``fsdp``; the moments per
+    device under ``zero1``.  Under ``dp_only`` a device holds every
+    param and moment and ``1 / n_devices`` of the batch.  (The
+    reference's ``lower_combo`` gives ``analytic_terms`` the tensor-
+    parallel counts under ``dp_only`` too; the port does not copy
+    that.)"""
+    from ..configs import (get_config, input_specs, shape_plan,
+                           train_grad_accum)
+    from ..models.transformer import model_init
+    from ..optim.adamw import adamw_init
     from ..roofline.analysis import model_flops, roofline_report
     from ..roofline.analytic import analytic_terms
     from ..roofline.collectives import collective_stats
-    from .mesh import H100_SXM, axes_for, make_production_mesh
+    from .mesh import H100_SXM, make_production_mesh
 
-    cfg, note = shape_plan(get_config(arch_id), shape_name)
+    cfg, note = shape_plan(cfg_override or get_config(arch_id), shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod)
     if cfg is None:
         return {"arch": arch_id, "shape": shape_name, "mesh": mesh.name,
                 "status": "skipped", "note": note}
     shape = SHAPES[shape_name]
-    axes = axes_for(mesh)
     sizes = mesh.shape
     n_devices = mesh.size
     n_model = sizes["model"]
 
     params = model_init(cfg, None, device="meta")
-    pspec = model_pspec(cfg, axes)
+    pspec, opt_pspec, in_pspecs = plan_pspecs(
+        cfg, shape_name, mesh, params, param_sharding=param_sharding,
+        opt_sharding=opt_sharding)
     specs = input_specs(cfg, shape_name)
-    in_pspecs = input_pspecs(cfg, shape_name, axes)
 
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_active = active_param_count(cfg, params)
@@ -178,7 +242,6 @@ def plan_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             ga = grad_accum if grad_accum is not None else train_grad_accum(
                 arch_id)
             opt = adamw_init(params)
-            opt_pspec = adamw_state_pspec(pspec)
             mem["grads"] = _local_bytes(pspec, params, sizes,
                                         itemsize=4 if ga > 1 else None)
             mem["optimizer"] = (_local_bytes(opt_pspec.m, opt.m, sizes)
@@ -192,18 +255,26 @@ def plan_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
     entry = lead[0] if len(lead) else None        # the batch dim's axes
     batch_axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
 
+    if param_sharding == "dp_only":
+        model_shards, data_shards = 1, n_devices
+    else:
+        model_shards, data_shards = n_model, n_devices // n_model
+    param_shards = n_devices if param_sharding == "fsdp" else model_shards
+    opt_shards = n_devices if opt_sharding == "zero1" else param_shards
     cache_bytes = (_tree_bytes(specs["caches"]) if shape.kind == "decode"
                    else 0.0)
     at = analytic_terms(
         cfg, kind=shape.kind, seq_len=shape.seq_len,
         global_batch=shape.global_batch, n_params=n_params,
-        n_active_params=n_active, n_devices=n_devices, model_shards=n_model,
-        data_shards=n_devices // n_model, hw=H100_SXM,
-        cache_bytes_total=cache_bytes, grad_accum=ga)
+        n_active_params=n_active, n_devices=n_devices,
+        model_shards=model_shards, data_shards=data_shards, hw=H100_SXM,
+        cache_bytes_total=cache_bytes, grad_accum=ga,
+        param_shards=param_shards, opt_shards=opt_shards)
     coll = collective_stats(
         cfg, kind=shape.kind, seq_len=shape.seq_len,
         global_batch=shape.global_batch, sizes=sizes, param_pspec=pspec,
-        params=params, batch_axes=batch_axes, grad_accum=ga, hw=H100_SXM)
+        params=params, batch_axes=batch_axes, grad_accum=ga, hw=H100_SXM,
+        opt_pspec=opt_pspec.m if opt_pspec is not None else None)
     mf = model_flops(n_active, n_tokens, train=shape.kind == "train")
     rec = roofline_report(
         arch=arch_id, shape=shape_name, mesh_name=mesh.name,
@@ -219,6 +290,8 @@ def plan_combo(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                 "n_active_params": n_active,
                 "grad_accum": ga if shape.kind == "train" else None,
                 "n_devices": n_devices,
+                "param_sharding": param_sharding,
+                "opt_sharding": opt_sharding,
                 "hbm_ok": mem["peak_hbm_est"] <= H100_SXM.hbm_bytes})
     if verbose:
         print(f"[dryrun] {arch_id:<24} {shape_name:<12} {mesh.name:<8} "

@@ -23,6 +23,27 @@ compressed wire's codec is process-global configuration
 expert-sharded path (``moe_impl="eshard"``): each "model" rank runs its
 local experts over its data shard's tokens at a batch-global capacity,
 and a psum over "model" combines.
+
+Both mesh paths (``moe_apply_a2a_block``, ``moe_apply_eshard``) run on
+a mesh of loopback axes (``comm.loopback_mesh``: every rank stacked in
+one process, the block splitting the global batch over them and joining
+it back) or of process-group axes (``comm.process_group_mesh``: one
+rank a process, which holds its own rows, as under the reference's
+``shard_map``).
+
+Gradients on a process-group mesh.  A process's loss is its own rows'
+loss, and the global loss's gradient (the loopback mesh's on the whole
+batch) is the mean of the processes' gradients over the axes that split
+the rows: the data axes under eshard, whose "model" ranks hold the same
+rows, and every axis under a2a, whose "model" axis splits them too.  So
+a pmean over an axis that splits the rows passes the cotangent back
+whole (the mean of the gradients divides, ``_pmean``).  Under eshard,
+the exit psum over "model" hands each rank's partial output the whole
+cotangent (``_psum``), and the routed input and the router enter
+through a psum of the ranks' cotangents (``_replicated_in``, Megatron's
+f, ``shard_map``'s transpose of an input replicated over "model"), so
+every "model" rank holds the whole gradient of each replicated leaf and
+its own experts' part of the expert leaves.
 """
 from __future__ import annotations
 
@@ -372,7 +393,7 @@ def moe_apply_a2a(params, x, cfg: ModelConfig, axis, books, *,
     topw, topi, probs = _route_probs(params, xf, cfg)
     aux_local = _aux(topi.reshape(*lead, b * s, k),
                      probs.reshape(*lead, b * s, e), cfg)
-    aux = axis.psum(aux_local) / tp
+    aux = _pmean(aux_local, axis)
     buf, slot, _ = _dispatch(x.reshape(r * b, s, d),
                              topi.reshape(r * b, s, k), cfg, cap)
 
@@ -521,6 +542,88 @@ def current_mesh() -> Optional[Mapping[str, object]]:
     return _MESH.get()
 
 
+def _on_processes(mesh, what: str) -> bool:
+    """True for a mesh of ``ProcessGroupAxis``, False for one of
+    ``LoopbackAxis``; a mesh that mixes them raises."""
+    from ..comm.axis import LoopbackAxis, ProcessGroupAxis
+    axes = list(mesh.values())
+    if all(isinstance(a, ProcessGroupAxis) for a in axes):
+        return True
+    if all(isinstance(a, LoopbackAxis) for a in axes):
+        return False
+    raise NotImplementedError(
+        f"{what} runs on a mesh of loopback axes or one of process-group "
+        f"axes, not on a mesh that mixes them")
+
+
+class _ReplicatedPsum(torch.autograd.Function):
+    """``axis.psum`` over a process group whose ranks each go on with the
+    sum as one replicated value: a rank's part enters that value with
+    weight 1, so its cotangent is the value's (what each rank's part
+    gets on a loopback mesh, where one replica of the sum is read)."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.psum(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _RowMean(torch.autograd.Function):
+    """``axis.psum / size`` over a process group whose ranks hold
+    different rows: the cotangent goes back whole, since the mean of the
+    processes' gradients over the axis divides it."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        return axis.psum(t) / axis.size
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class _ReplicatedIn(torch.autograd.Function):
+    """The identity on a value every rank of ``axis`` holds and feeds
+    into its own part of a sum over ``axis``; the backward adds the
+    ranks' cotangents, each of which saw only its own part."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.axis.psum(ct.contiguous()), None
+
+
+def _on_group(axis) -> bool:
+    from ..comm.axis import ProcessGroupAxis
+    return isinstance(axis, ProcessGroupAxis)
+
+
+def _psum(t, axis):
+    """``axis.psum(t)`` of partial values, differentiable on a
+    process-group axis too."""
+    return _ReplicatedPsum.apply(t, axis) if _on_group(axis) \
+        else axis.psum(t)
+
+
+def _pmean(t, axis):
+    """The mean of ``t`` over ``axis``, whose ranks hold different rows."""
+    return _RowMean.apply(t, axis) if _on_group(axis) \
+        else axis.psum(t) / axis.size
+
+
+def _replicated_in(t, axis):
+    """``t``, which every rank of the process-group ``axis`` holds,
+    entering work whose parts ``_psum`` adds over ``axis``."""
+    return _ReplicatedIn.apply(t, axis) if _on_group(axis) else t
+
+
 def _split_batch(x, mesh, batch_axes):
     """(B, ...) → the loopback mesh's rank dims + (B / ranks, ...): the
     batch split over ``batch_axes`` in that order, the last minor (the
@@ -544,38 +647,37 @@ def moe_apply_a2a_block(params, x, cfg: ModelConfig, mesh=None):
     stack.
 
     ``mesh`` (default: ``current_mesh()``) must hold a ``"model"`` axis
-    whose size divides ``n_experts`` and, with the other axes, the
-    global batch; tokens split over every axis (``"model"`` minor),
-    experts over ``"model"``.  Anything else falls back to the scatter
-    path: the same numbers, no wire.  The axes are loopback axes on one
-    stack of ranks (``comm.loopback_mesh``): the block splits the global
-    batch over the ranks and joins it back.
+    whose size divides ``n_experts``; tokens split over every axis
+    (``"model"`` minor), experts over ``"model"``.  Anything else falls
+    back to the scatter path: the same numbers, no wire.  On loopback
+    axes (``comm.loopback_mesh``) ``x`` is the global batch, which the
+    block splits over the ranks and joins back (the global batch must
+    divide by the ranks, else the fallback); on process-group axes
+    (``comm.process_group_mesh``) ``x`` is this process's rows and
+    ``y`` its rows' output.
 
     Returns ``(y, aux, wire_coded_bits)``: the measured global coded
     bits of this layer's dispatch and combine (float64), which
     ``forward_train`` sums into ``moe_wire_coded_bits``.
     """
-    from ..comm.axis import LoopbackAxis
-
     mesh = current_mesh() if mesh is None else mesh
     zero = torch.zeros((), dtype=torch.float64, device=x.device)
     if not mesh or "model" not in mesh:
         y, aux = moe_apply(params, x, cfg)
         return y, aux, zero
+    on_processes = _on_processes(mesh, "moe_apply_a2a_block")
     tp = mesh["model"].size
     data_axes = tuple(a for a in mesh if a != "model")
     dp = math.prod(mesh[a].size for a in data_axes)
-    if tp == 1 or cfg.n_experts % tp != 0 or x.shape[0] % (dp * tp) != 0:
+    if tp == 1 or cfg.n_experts % tp != 0 or (
+            not on_processes and x.shape[0] % (dp * tp) != 0):
         y, aux = moe_apply(params, x, cfg)
         return y, aux, zero
-    if not all(isinstance(a, LoopbackAxis) for a in mesh.values()):
-        raise NotImplementedError(
-            "moe_apply_a2a_block splits the batch over a loopback mesh; "
-            "call moe_apply_a2a with a process-group axis directly")
 
     wire = _A2A_WIRE
     books = _a2a_wire_books(wire["scheme_name"])
-    xs, order = _split_batch(x, mesh, data_axes + ("model",))
+    xs, order = (x, None) if on_processes else _split_batch(
+        x, mesh, data_axes + ("model",))
     y, aux, stats = moe_apply_a2a(
         params, xs, cfg, mesh["model"], books,
         scheme_name=wire["scheme_name"], chunk=wire["chunk"],
@@ -584,8 +686,10 @@ def moe_apply_a2a_block(params, x, cfg: ModelConfig, mesh=None):
     # data group's total; data groups ran their own a2as, so they add
     coded = mesh["model"].psum(stats["coded_wire_bits"])
     for a in data_axes:
-        aux = mesh[a].psum(aux) / mesh[a].size
+        aux = _pmean(aux, mesh[a])
         coded = mesh[a].psum(coded)
+    if on_processes:
+        return y, aux, coded
     first = (0,) * len(order)
     return _join_batch(y, order), aux[first], coded[first]
 
@@ -596,44 +700,43 @@ def moe_apply_eshard(params, x, cfg: ModelConfig, mesh=None):
     ``mesh`` (default: ``current_mesh()``) holds a ``"model"`` axis and
     data axes; without a ``"model"`` axis this is ``moe_apply``, as in
     the reference.  The batch splits over the data axes (in mesh order,
-    the first major); ``"model"`` rank m owns experts ``[m·E/tp,
-    (m+1)·E/tp)``.  Each data shard's slots take positions token-major,
-    k-minor, per expert, and a slot past the batch-global
-    ``moe_capacity(tokens of the shard)`` is dropped (not the streaming
-    capacity: this is a training path, and its decode is not the
-    forward's).  Each rank's experts run over its data shard's buffer,
-    each rank combines its own experts' slots (a token's slots in slot
-    order), and a psum over ``"model"`` adds the ranks' partial outputs
-    in rank order, rounding each add, as XLA's psum does.  The aux loss
-    is the Switch loss of each data shard, averaged by a pmean over
-    ``"model"`` and then over each data axis.  The shared expert runs
-    over the whole ``x``.
+    the first major) and is replicated over ``"model"``; ``"model"``
+    rank m owns experts ``[m·E/tp, (m+1)·E/tp)``.  Each data shard's
+    slots take positions token-major, k-minor, per expert, and a slot
+    past the batch-global ``moe_capacity(tokens of the shard)`` is
+    dropped (not the streaming capacity: this is a training path, and
+    its decode is not the forward's).  Each rank's experts run over its
+    data shard's buffer, each rank combines its own experts' slots (a
+    token's slots in slot order), and a psum over ``"model"`` adds the
+    ranks' partial outputs in rank order, rounding each add, as XLA's
+    psum does.  The aux loss is the Switch loss of each data shard,
+    averaged by a pmean over ``"model"`` and then over each data axis.
+    The shared expert runs over the whole ``x``.
 
-    The axes are loopback axes on one stack of ranks
-    (``comm.loopback_mesh``): the router runs once over every rank's
-    rows, so ``topi`` does not depend on how the rows are split, and
-    each expert runs one product over the buffers of every data shard
-    (``_experts``), the rows its data ranks give it.  Returns (y, aux).
+    On loopback axes (``comm.loopback_mesh``) ``x`` is the global batch
+    and every rank is stacked in this process: the router runs once over
+    every rank's rows, and each expert runs one product over the buffers
+    of every data shard (``_experts``), the rows its data ranks give it.
+    On process-group axes (``comm.process_group_mesh``) ``x`` is this
+    process's data shard: the process routes its rows, runs its own
+    experts over its shard's buffer and combines their slots, and
+    ``mesh["model"].psum`` adds the ranks' outputs (bf16: all-gathered,
+    then added in rank order on every process).  Returns (y, aux).
     Raises for an ``n_experts`` that the ``"model"`` size does not
-    divide, a batch that the data axes do not divide, and an axis that
-    is not a loopback axis.
+    divide, a global batch (loopback) that the data axes do not divide,
+    and a mesh that mixes loopback and process-group axes.
     """
-    from ..comm.axis import LoopbackAxis
-
     mesh = current_mesh() if mesh is None else mesh
     if not mesh or "model" not in mesh:
         return moe_apply(params, x, cfg)
-    if not all(isinstance(a, LoopbackAxis) for a in mesh.values()):
-        raise NotImplementedError(
-            "moe_apply_eshard splits the batch over a loopback mesh; a "
-            "process-group axis is not supported")
+    on_processes = _on_processes(mesh, "moe_apply_eshard")
     tp = mesh["model"].size
     e, k = cfg.n_experts, cfg.experts_per_token
     if e % tp != 0:
         raise ValueError(f"n_experts={e} not divisible by axis 'model' "
                          f"size {tp}")
     data_axes = tuple(a for a in mesh if a != "model")
-    dp = math.prod(mesh[a].size for a in data_axes)
+    dp = 1 if on_processes else math.prod(mesh[a].size for a in data_axes)
     b, s, d = x.shape
     if b % dp != 0:
         raise ValueError(f"batch {b} not divisible by the data axes "
@@ -641,6 +744,55 @@ def moe_apply_eshard(params, x, cfg: ModelConfig, mesh=None):
     e_local, n_local = e // tp, b // dp * s
     cap = moe_capacity(n_local, cfg)
 
+    if on_processes:
+        y, aux = _eshard_process(params, x, cfg, mesh, data_axes, e_local,
+                                 cap)
+    else:
+        y, aux = _eshard_loopback(params, x, cfg, mesh, data_axes, e_local,
+                                  cap)
+    if cfg.n_shared_experts > 0:
+        y = y + mlp_apply(params["shared"], x.reshape(-1, d),
+                          cfg).reshape(x.shape)
+    return y, aux
+
+
+def _eshard_process(params, x, cfg: ModelConfig, mesh, data_axes,
+                    e_local: int, cap: int):
+    """``moe_apply_eshard`` of this process's rows (a process-group
+    mesh): its "model" rank's experts, one psum over "model"."""
+    b, s, d = x.shape
+    n, k, e = b * s, cfg.experts_per_token, cfg.n_experts
+    model = mesh["model"]
+    m = model.rank
+    lo = m * e_local
+    xz = _replicated_in(x, model).reshape(1, n, d)
+    router = {"router": _replicated_in(params["router"], model)}
+    topw, topi, probs = _route_probs(router, xz.reshape(n, d), cfg)
+    topi = topi.reshape(1, n, k)
+    aux = _aux(topi, probs.reshape(1, n, e), cfg)[0]
+    buf, slot, _ = _dispatch(xz, topi, cfg, cap, thr=cap)
+    out = _experts(buf[:, lo:lo + e_local],
+                   _expert_weights(params)[lo:lo + e_local], cfg)
+    # this rank's kept slots, as rows of its (1, E/tp, C, d) outputs;
+    # every other slot reads the zero row
+    mine = (topi.reshape(1, n * k) // e_local == m) & (slot < e * cap)
+    local = torch.where(mine, slot - lo * cap, e_local * cap)
+    y = _combine(out, local, topw.reshape(1, n, k), n)
+    y = _psum(y, model).reshape(x.shape)
+    aux = _psum(aux, model) / model.size     # the same rows' aux on each
+    for a in data_axes:
+        aux = _pmean(aux, mesh[a])
+    return y, aux
+
+
+def _eshard_loopback(params, x, cfg: ModelConfig, mesh, data_axes,
+                     e_local: int, cap: int):
+    """``moe_apply_eshard`` of the global batch on a loopback mesh:
+    every rank at once."""
+    b, s, d = x.shape
+    e, k, tp = cfg.n_experts, cfg.experts_per_token, mesh["model"].size
+    dp = math.prod(mesh[a].size for a in data_axes)
+    n_local = b // dp * s
     xs, order = _split_batch(x, mesh, data_axes)   # data dims + (B/dp,S,d)
     xz = xs.reshape(dp, n_local, d)                # one row group a shard
     topw, topi, probs = _route_probs(params, xz.reshape(-1, d), cfg)
@@ -670,7 +822,4 @@ def moe_apply_eshard(params, x, cfg: ModelConfig, mesh=None):
     for a in data_axes:
         aux = mesh[a].psum(aux) / mesh[a].size
     y = _join_batch(y.reshape(*data_sizes, b // dp, s, d), order)
-    if cfg.n_shared_experts > 0:
-        y = y + mlp_apply(params["shared"], x.reshape(-1, d),
-                          cfg).reshape(x.shape)
     return y, aux.reshape(-1)[0]

@@ -8,6 +8,8 @@ ring egress factor (``repro.roofline.analysis._FACTORS``), with n the
 devices of the axes it runs over:
 
   all-reduce      2(n-1)/n × payload
+  all-gather       (n-1)/n × payload   (payload: the gathered tensor)
+  reduce-scatter    (n-1)  × payload   (payload: a device's shard of it)
   all-to-all       (n-1)/n × payload
 
 ``T`` below is the tokens a device holds: batch × sequence (the prefix
@@ -19,7 +21,9 @@ batch's shards; ``d`` the model width; activations are bf16 (2 bytes).
    layer's shared-expert MLP included) whose output projection (``wo``,
    ``w_out``, ``out_proj``, ``w_down``) is sharded on its input dim;
    ``mamba`` has no FFN, so one a layer.
-2. MoE, a layer, by ``cfg.moe_impl``:
+2. MoE, a layer whose experts are split over an axis (a device that
+   holds every expert, as under ``dp_only``, exchanges none), by
+   ``cfg.moe_impl``:
    ``a2a``: two all-to-alls over ``model`` (dispatch and combine) of the
    routed rows, T × k × d × 2 bytes each;
    ``eshard``: one all-reduce over ``model`` of the (T, d) output;
@@ -31,11 +35,25 @@ batch's shards; ``d`` the model width; activations are bf16 (2 bytes).
    and 2 three times under block remat (forward, the re-forward,
    backward) and twice otherwise (``save_mixer_ffn`` saves the outputs
    after the collectives).
-4. Train only, the data-parallel gradient sync over the axes the batch
-   is split on: one all-reduce of a device's gradient bytes (its
-   params' model-axis shard, in the params' dtypes; float32 with
-   ``grad_accum`` > 1, the port's averaged microbatch gradients).
-5. Time: each collective's wire bytes over the link its group runs on
+4. Train only, the gradient sync, leaf by leaf, of a device's gradient
+   bytes G (its params' model-axis shard, in the params' dtypes; float32
+   with ``grad_accum`` > 1, the port's averaged microbatch gradients):
+   a leaf whose param spec holds data axes (``fsdp``): one
+   reduce-scatter of G over them; else a leaf whose moments' spec
+   (``opt_pspec``) holds data axes (``zero1``): one reduce-scatter of G
+   and one all-gather of the updated param (its model-axis shard in its
+   dtype) over them; every other leaf: one all-reduce of G over the
+   axes the batch is split on, all such leaves together (``tp``; under
+   ``dp_only`` the batch is split over every axis and no param over
+   "model", so that is one all-reduce of the whole gradient over all
+   the devices, and rule 1 adds nothing).
+5. ``fsdp``: a leaf whose param spec holds data axes is all-gathered
+   over them (its model-axis shard) before each pass of rule 3: a
+   stacked leaf a layer at a time (its bytes over ``repeats``), the
+   layer's leaves in one all-gather, ``repeats`` × passes times; the
+   embedding and the final norm once a forward and once a backward
+   (no re-forward).
+6. Time: each collective's wire bytes over the link its group runs on
    (``HardwareSpec.group_bw``).  Devices are numbered row-major over the
    mesh, so a group over axes whose outermost one reaches at most
    ``node_size`` consecutive devices (``launch.mesh.axis_span``) stays
@@ -47,6 +65,7 @@ Pure arithmetic on shapes and specs: it runs on meta tensors.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Tuple
 
@@ -60,6 +79,8 @@ __all__ = ["CollectiveStats", "collective_stats", "spec_shards",
 
 FACTORS = {
     "all-reduce": lambda n: 2.0 * (n - 1) / max(n, 1),
+    "all-gather": lambda n: (n - 1) / max(n, 1),
+    "reduce-scatter": lambda n: float(n - 1),
     "all-to-all": lambda n: (n - 1) / max(n, 1),
 }
 _OUT_PROJ = {"gqa": "wo", "mla": "wo", "rec": "w_out", "mamba": "out_proj"}
@@ -112,15 +133,36 @@ def _on_model(entry) -> bool:
     return entry == "model" or (isinstance(entry, tuple) and "model" in entry)
 
 
+def _data_axes(spec) -> Tuple[str, ...]:
+    """The axes other than "model" that a spec splits any dim over."""
+    out = ()
+    for entry in spec:
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None and name != "model":
+                out += (name,)
+    return out
+
+
+def _model_shard_bytes(spec, leaf, n_model: int, itemsize=None) -> float:
+    """Bytes of a leaf's model-axis shard (the data axes not split)."""
+    shard = 1
+    for entry in spec:
+        if _on_model(entry):
+            shard *= n_model
+    return leaf.numel() * (itemsize or leaf.element_size()) / shard
+
+
 def collective_stats(cfg: ModelConfig, *, kind: str, seq_len: int,
                      global_batch: int, sizes: Mapping[str, int],
                      param_pspec, params, batch_axes: Tuple[str, ...],
-                     grad_accum: int = 1, hw=H100_SXM) -> CollectiveStats:
+                     grad_accum: int = 1, hw=H100_SXM,
+                     opt_pspec=None) -> CollectiveStats:
     """The wire bytes and seconds of one step of ``kind`` (train |
     prefill | decode) on a mesh of ``sizes`` (its axes in mesh order),
     by the rules above.  ``param_pspec`` and ``params`` (meta tensors)
     are the model's specs and shapes; ``batch_axes`` the axes the batch
-    is split over."""
+    is split over; ``opt_pspec`` the specs of one moment (the params'
+    tree), None where they mirror the params."""
     st = CollectiveStats()
     n_model = sizes.get("model", 1)
     data_axes = tuple(a for a in sizes if a != "model")
@@ -152,6 +194,8 @@ def collective_stats(cfg: ModelConfig, *, kind: str, seq_len: int,
             moe = spec["ffn"]
             if "shared" in moe and _on_model(moe["shared"]["w_down"][1]):
                 st.add("all-reduce", "tp", act, n_model, reps, bw_model)
+            if moe["w_gate"][1] is None:            # every expert local
+                continue
             if cfg.moe_impl == "a2a":
                 st.add("all-to-all", "moe", act * cfg.experts_per_token,
                        n_model, 2 * reps, bw_model)
@@ -165,16 +209,60 @@ def collective_stats(cfg: ModelConfig, *, kind: str, seq_len: int,
                 st.add("all-reduce", "moe",
                        e_local * rows * cfg.d_model * 2.0, n_data, reps,
                        bw_data)
-    if kind == "train":
-        grad = 0.0
-        for spec, leaf in zip(pspec_leaves(param_pspec), tree_leaves(params)):
-            shard = 1
-            for entry in spec:
-                if _on_model(entry):
-                    shard *= n_model
-            n = leaf.numel() / shard
-            grad += n * (4 if grad_accum > 1 else leaf.element_size())
-        if batch_axes:
-            st.add("all-reduce", "dp", grad, batch_shards, 1,
-                   hw.group_bw(axis_span(sizes, batch_axes)))
+    _fsdp_gathers(st, cfg, sizes, param_pspec, params, passes,
+                  1 if kind != "train" else 2, hw)
+    if kind != "train":
+        return st
+    leaves = tree_leaves(params)
+    specs = pspec_leaves(param_pspec)
+    opt_specs = (pspec_leaves(opt_pspec) if opt_pspec is not None
+                 else [None] * len(leaves))
+    all_reduced = 0.0
+    sharded: Dict[Tuple[str, ...], list] = {}    # axes -> [RS, AG] bytes
+    for spec, ospec, leaf in zip(specs, opt_specs, leaves):
+        g = _model_shard_bytes(spec, leaf, n_model,
+                               itemsize=4 if grad_accum > 1 else None)
+        axes = _data_axes(spec) or (_data_axes(ospec) if ospec else ())
+        if not axes:
+            all_reduced += g
+            continue
+        b = sharded.setdefault(axes, [0.0, 0.0])
+        b[0] += g
+        if not _data_axes(spec):                 # ZeRO-1: params gathered
+            b[1] += _model_shard_bytes(spec, leaf, n_model)
+    for axes, (rs, ag) in sharded.items():
+        n = math.prod(sizes[a] for a in axes)
+        bw = hw.group_bw(axis_span(sizes, axes))
+        st.add("reduce-scatter", "dp", rs / n, n, 1, bw)
+        st.add("all-gather", "zero1", ag, n, 1, bw)
+    if batch_axes:
+        st.add("all-reduce", "dp", all_reduced, batch_shards, 1,
+               hw.group_bw(axis_span(sizes, batch_axes)))
     return st
+
+
+def _fsdp_gathers(st: CollectiveStats, cfg: ModelConfig, sizes, param_pspec,
+                  params, passes: int, top_passes: int, hw) -> None:
+    """Rule 5: the all-gathers of the params an FSDP plan splits over data
+    axes (none under any other plan)."""
+    n_model = sizes.get("model", 1)
+
+    def gather(spec_tree, leaf_tree, per: int, times: int) -> None:
+        by_axes: Dict[Tuple[str, ...], float] = {}
+        for spec, leaf in zip(pspec_leaves(spec_tree),
+                              tree_leaves(leaf_tree)):
+            axes = _data_axes(spec)
+            if axes:
+                by_axes[axes] = by_axes.get(axes, 0.0) + \
+                    _model_shard_bytes(spec, leaf, n_model) / per
+        for axes, payload in by_axes.items():
+            st.add("all-gather", "fsdp", payload,
+                   math.prod(sizes[a] for a in axes), times,
+                   hw.group_bw(axis_span(sizes, axes)))
+
+    for bg, specs, leaves in zip(cfg.blocks, param_pspec["groups"],
+                                 params["groups"]):
+        for spec, leaf in zip(specs, leaves):
+            gather(spec, leaf, bg.repeats, bg.repeats * passes)
+    gather({k: v for k, v in param_pspec.items() if k != "groups"},
+           {k: v for k, v in params.items() if k != "groups"}, 1, top_passes)

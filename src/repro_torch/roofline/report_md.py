@@ -1,7 +1,7 @@
 """Render the plan records (``launch.dryrun --sweep --out``) into
 markdown tables (port of ``repro.roofline.report_md``: ``fmt_bytes``,
-``fmt_s`` and ``roofline_table`` are the reference's; ``dryrun_table``
-has the port's columns)."""
+``fmt_s``, ``roofline_table`` and ``pick_hillclimb`` are the
+reference's; ``dryrun_table`` has the port's columns)."""
 from __future__ import annotations
 
 import json
@@ -72,9 +72,27 @@ def roofline_table(records: List[Dict], mesh: str = "16x16") -> str:
     return "\n".join(rows)
 
 
+def pick_hillclimb(records: List[Dict]) -> Dict[str, Dict]:
+    """The single-pod combinations a hillclimb starts from: the
+    ``train_4k`` one with the least useful-FLOPs ratio, and the one with
+    the largest collective term."""
+    ok = [r for r in records if r.get("status") == "ok"
+          and r["mesh"] == "16x16"]
+    worst_useful = min((r for r in ok if r["shape"] == "train_4k"),
+                       key=lambda r: r["useful_flops_ratio"])
+    most_coll = max(ok, key=lambda r: r["collective_s"])
+    return {"worst_useful_flops": worst_useful,
+            "most_collective_bound": most_coll}
+
+
 if __name__ == "__main__":
     records = json.load(open(sys.argv[1]))
     mesh = sys.argv[2] if len(sys.argv) > 2 else "16x16"
     print(dryrun_table(records, mesh))
     print()
     print(roofline_table(records, mesh))
+    for k, r in pick_hillclimb(records).items():
+        print(f"\n{k}: {r['arch']} × {r['shape']} "
+              f"(compute={fmt_s(r['compute_s'])}, "
+              f"coll={fmt_s(r['collective_s'])}, "
+              f"useful={r['useful_flops_ratio']:.2f})")

@@ -199,7 +199,8 @@ def test_refusals():
                                                          "model": 1}))
     group = object.__new__(ProcessGroupAxis)          # no world needed
     with pytest.raises(NotImplementedError, match="process-group"):
-        moe.moe_apply_eshard(tp, x, tcfg, {"model": group})
+        moe.moe_apply_eshard(tp, x, tcfg, {"data": loopback_mesh(
+            {"data": 2})["data"], "model": group})
 
 
 def test_forward_train_with_eshard_within_step_tol():
