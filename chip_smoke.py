@@ -319,13 +319,31 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ms against ``one_card_bound`` at 1 x 4096 (the dp_only plan's
    per-device terms, checked equal) within ``SHARE_LIMIT``; the host
    median of the 3 steps; peak memory;
-18. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+18. the captured decode step: every ``Engine`` above runs its decode
+   steps as replays of a ``serve.CapturedStep`` (the step captured once
+   as a CUDA graph for each batch size and book epoch, the position in a
+   device buffer).  Checked in place, right after the serve path's
+   launch counts are read, on the wire engine of phase 4 (``multisym``
+   and ``scan``) and of phases 9-13 (``captured_check``): over
+   ``CAPTURE_STEPS`` (8) steps from one prefill, each replay against
+   ``make_serve_step`` run eagerly on copies of the same inputs -- the
+   logits, every cache leaf (positions, MoE counts and recurrent states
+   included) and every metric equal bit for bit, and ``LAUNCHES`` grown
+   on every replay by the launches its capture counted, B1, B2, B5 and
+   B4 (B3 under ``scan``) among them; a ``generate`` of
+   ``SYNC_FREE_NEW`` tokens whose replay loop runs in torch's sync debug
+   mode "error" but for each step's one metrics copy.  Printed (and
+   listed again under this phase's header): the host median of a step,
+   eager and captured, over the same steps (each with its metrics
+   copy), the device ms of one replay by CUDA events, and the idle
+   share 1 - device / captured host median, without the profiler;
+19. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
    ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
-   ``{"stats": ...}``, one ``{"examples": ...}`` and one
-   ``{"mamba2_train": ...}`` record, one ``{"kernels": [...]}`` record
-   (B1-B8, with ``launches_by_path`` for every path), then ``{"ok":
-   true, "device": {...}}``.
+   ``{"stats": ...}``, one ``{"examples": ...}``, one
+   ``{"mamba2_train": ...}`` and one ``{"captured": ...}`` record, one
+   ``{"kernels": [...]}`` record (B1-B8, with ``launches_by_path`` for
+   every path), then ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -567,15 +585,21 @@ def device_events(torch, fn, reps: int) -> dict:
     """name -> (device us, count) of every kernel, memset and copy that
     ``reps`` calls of ``fn`` (after one warm-up) ran, summed over the
     calls, from torch.profiler's device events (device activity alone:
-    no host events are recorded)."""
+    no host events are recorded).  A window in which the profiler
+    recorded no device event at all (seen once over 20 calls of B5,
+    whose output was checked) is read again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return device_kernel_us(prof)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = device_kernel_us(prof)
+        if out:
+            break
+    return out
 
 
 def device_ms(torch, fn, reps: int):
@@ -952,7 +976,7 @@ def main() -> int:
     phase("serve gemma2-2b (bitexact wire)")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=gen, device=dev)
-    runs, specs = {}, {}
+    runs, specs, wire_engines = {}, {}, {}
     expect_kernel = {"multisym": "decode_chunks_multisym",
                      "scan": "decode_chunks_canonical"}
     n_sym = BATCH * cfg.vocab_size
@@ -964,8 +988,9 @@ def main() -> int:
                                           transport="chunked", chunk=CHUNK,
                                           decode_backend=backend)
         specs[backend] = spec
-        eng = Engine(params, cfg, ServeConfig(max_cache_len=PROMPT + NEW),
-                     spec, device=dev)
+        eng = wire_engines[backend] = Engine(
+            params, cfg, ServeConfig(max_cache_len=PROMPT + NEW), spec,
+            device=dev)
         before = dict(build.LAUNCHES)
         t0 = time.perf_counter()
         toks, totals = eng.generate(prompts, NEW)
@@ -1005,6 +1030,14 @@ def main() -> int:
               f"{totals['act_coded_bits'] / totals['act_raw_bits']:.4f}, "
               f"launches {grew} [{card}]")
     launches = dict(build.LAUNCHES)         # read right after the main path
+
+    # Phase 18 on both wire engines (their graphs hold the weights: the
+    # engines go before the next model is built)
+    for backend, eng in wire_engines.items():
+        captured_check(torch, eng, prompts, f"gemma2-2b {backend}", card,
+                       build, ("encode_lookup", "pack_blocks",
+                               "histogram256", expect_kernel[backend]))
+    del wire_engines
 
     # The serve step itself must not wait for the device: Engine.generate
     # takes the step's one host sync when it reads the metrics.
@@ -1166,7 +1199,21 @@ def main() -> int:
     phase("17. mamba2-780m trained at full width and depth (1 x 4096)")
     mamba_rec, mamba_launches = mamba_train_phase(torch, dev, card, build)
 
-    # ------------------------------------------------------ 18. records
+    # ------------------ 18. the captured decode step (checked in place)
+    phase("18. captured decode step")
+    want = {"gemma2-2b multisym", "gemma2-2b scan", "llama4-scout-17b-a16e",
+            "deepseek-v3-671b", *RECURRENT, "internvl2-26b"}
+    need(set(CAPTURED) == want, f"captured step checked on "
+         f"{sorted(CAPTURED)}, not on {sorted(want)}")
+    for path, r in CAPTURED.items():
+        print(f"{path}: host median a step {r['host_ms_median_eager']:.3f} ms "
+              f"eager, {r['host_ms_median_captured']:.3f} ms captured "
+              f"({r['host_ms_median_eager'] / r['host_ms_median_captured']:.2f}"
+              f"x); device {r['device_ms_a_replay']:.3f} ms a replay; idle "
+              f"share {r['idle_share']:.3f}; replay = eager bit for bit over "
+              f"{r['steps_compared']} steps [{card}]")
+
+    # ------------------------------------------------------ 19. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1234,6 +1281,7 @@ def main() -> int:
     print(json.dumps({"card": card, "stats": stats_rec}))
     print(json.dumps({"card": card, "examples": ex_rec}))
     print(json.dumps({"card": card, "mamba2_train": mamba_rec}))
+    print(json.dumps({"card": card, "captured": CAPTURED}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1486,7 +1534,15 @@ def check_b5_to_b8(torch, dev, params, step_logits, int_ops_per_s,
         err = max(err, int(d.max()))
         need(int(got.sum()) == sym.numel(), f"B5 {tag}: counts sum "
              f"{int(got.sum())} != {sym.numel()}")
-    dev_ops = device_ops(torch, lambda: histogram.histogram256(gate["hi"]))
+    # the profiler has lost events of a window on this card (0.95 of the
+    # kernel a call over 20 calls, or none at all); a lost event only
+    # lowers a count, so one window reading the kernel once a call, and
+    # nothing else, settles it (up to three windows are read)
+    for _ in range(3):
+        dev_ops = device_ops(torch,
+                             lambda: histogram.histogram256(gate["hi"]))
+        if list(dev_ops.values()) == [1.0]:
+            break
     each = list(planes.values())
     n = each[0].numel()
     ms = cuda_ms(torch, lambda: [histogram.histogram256(s) for s in each],
@@ -1790,6 +1846,143 @@ def profile_steps(torch, params, cfg, prompts, spec, steps: int = 8):
             at["tok"] = logits[:, -1].argmax(-1)[:, None]
 
         return steps_profile(torch, one, steps)[1]
+
+
+# ------------------------------------------- 18. the captured decode step
+CAPTURE_STEPS = 8             # steps replayed beside the eager step
+SYNC_FREE_NEW = 8             # tokens of the generate run in sync mode
+CAPTURED = {}                 # path -> phase 18's record of that engine
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bytes (a NaN's and a zero's sign too)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def captured_check(torch, eng, prompts, path, card, build, expect,
+                   prefix=None) -> dict:
+    """Phase 18 on one engine whose ``generate`` has run (so its
+    ``CapturedStep`` holds the graph of this batch size): over
+    ``CAPTURE_STEPS`` steps from one prefill, each replay against the
+    plain step (``make_serve_step``, eager) on copies of the same inputs
+    -- logits, every cache leaf and every metric equal bit for bit, the
+    launch counts grown by the capture's (``expect`` among them) -- with
+    each side's host time a step (the step and its one metrics copy);
+    then a ``generate`` whose replay loop runs in torch's sync debug
+    mode "error" except for each step's metrics copy; then the device
+    time of one replay by CUDA events.  Records into ``CAPTURED``."""
+    from repro_torch.device import metrics_to_host
+    from repro_torch.models import prefill
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.serve import CapturedStep
+    from repro_torch.serve import engine as engine_mod
+
+    t_check = time.perf_counter()
+    cap = eng._step
+    need(isinstance(cap, CapturedStep), f"{path}: the engine's step is a "
+         f"{type(cap).__name__}, not a CapturedStep")
+    graph = cap._graphs.get((prompts.shape[0], id(eng.params)))
+    need(graph is not None, f"{path}: generate captured no graph")
+    need(all(graph.launches.get(k, 0) > 0 for k in expect),
+         f"{path}: the capture counted {graph.launches}, not each of "
+         f"{expect}")
+
+    # ---- replay vs eager, bit for bit, with each side's host time
+    batch = {"tokens": prompts}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
+    start = prompts.shape[1] + (0 if prefix is None else prefix.shape[1])
+    host = {"captured": [], "eager": []}
+    with torch.no_grad():
+        logits, caches = prefill(eng.params, batch, eng.cfg,
+                                 eng.serve.max_cache_len)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        ecaches = tree_map(torch.clone, caches)
+        for i in range(CAPTURE_STEPS):
+            pos = start + i
+            torch.cuda.synchronize()
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            lc, caches, mc = cap(eng.params, tok, caches, pos)
+            metrics_to_host(mc)
+            host["captured"].append(time.perf_counter() - t0)
+            grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES
+                    if build.LAUNCHES[k] != before[k]}
+            need(grew == graph.launches, f"{path} replay {i}: launches grew "
+                 f"by {grew}, the capture counted {graph.launches}")
+            t0 = time.perf_counter()
+            le, ecaches, me = cap.step(eng.params, tok.clone(), ecaches, pos)
+            metrics_to_host(me)
+            host["eager"].append(time.perf_counter() - t0)
+            need(same_bits(torch, lc, le), f"{path} step {i}: the replayed "
+                 f"logits differ from the eager step's")
+            for j, (a, b) in enumerate(zip(tree_leaves(caches),
+                                           tree_leaves(ecaches))):
+                need(same_bits(torch, a, b), f"{path} step {i}: cache leaf "
+                     f"{j} {tuple(a.shape)} differs from the eager step's")
+            need(sorted(mc) == sorted(me) and all(
+                same_bits(torch, mc[k], me[k]) for k in mc),
+                f"{path} step {i}: the metrics differ from the eager step's")
+            tok = lc[:, -1].argmax(-1)[:, None]
+    del ecaches, logits
+
+    # ---- the replay loop of one generate, without a host sync but the
+    # metrics copy of each step
+    real_step, real_copy = eng._step, engine_mod.metrics_to_host
+
+    def step(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        return real_step(*a)
+
+    def copy(m):
+        torch.cuda.set_sync_debug_mode("default")
+        return real_copy(m)
+
+    eng._step, engine_mod.metrics_to_host = step, copy
+    try:
+        eng.generate(prompts, SYNC_FREE_NEW, prefix_embeds=prefix)
+    except RuntimeError as e:
+        raise SmokeError(f"{path}: the replay loop waits for the device "
+                         f"outside the metrics copy: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        eng._step, engine_mod.metrics_to_host = real_step, real_copy
+
+    # ---- one replay's device time (CUDA events around the graph alone)
+    dev_ms = []
+    for _ in range(CAPTURE_STEPS):
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        graph.graph.replay()
+        t_end.record()
+        t_end.synchronize()
+        dev_ms.append(t_start.elapsed_time(t_end))
+
+    def median(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    cap_ms = median(host["captured"]) * 1e3
+    eager_ms = median(host["eager"]) * 1e3
+    device = median(dev_ms)
+    rec = {"steps_compared": CAPTURE_STEPS, "replay_equals_eager": True,
+           "launches_a_replay": graph.launches,
+           "sync_free_replays": SYNC_FREE_NEW - 1,
+           "host_ms_median_eager": eager_ms,
+           "host_ms_median_captured": cap_ms,
+           "device_ms_a_replay": device, "device_ms_replays": dev_ms,
+           "idle_share": 1.0 - device / cap_ms,
+           "seconds": time.perf_counter() - t_check, "card": card}
+    CAPTURED[path] = rec
+    print(f"{path} captured step: {CAPTURE_STEPS} replays = the eager step "
+          f"bit for bit (logits, caches, metrics), launches a replay "
+          f"{graph.launches}, {SYNC_FREE_NEW - 1} replays without a host "
+          f"sync; host median a step {eager_ms:.3f} ms eager, {cap_ms:.3f} "
+          f"ms captured; device {device:.3f} ms a replay (events), idle "
+          f"share {rec['idle_share']:.3f} ({rec['seconds']:.1f} s) [{card}]")
+    return rec
 
 
 def start_probe(build, name: str, source: str):
@@ -2739,7 +2932,8 @@ class Recorder:
             return pre0(params, x, cfg)
 
         def dec(params, x, counts, pos, cfg):
-            self.decode.append((x.detach(), counts.clone(), pos))
+            # pos is a 0-d device tensor: the taped replays are eager
+            self.decode.append((x.detach(), counts.clone(), int(pos)))
             return dec0(params, x, counts, pos, cfg)
 
         moe._a2a_wire, blocks.moe_prefill, blocks.moe_decode = wire, pre, dec
@@ -3012,6 +3206,10 @@ def moe_phase(torch, dev, card, build):
              / totals["act_raw_bits"],
              "moe_wire_raw_bits_per_step": per_step,
              "launches": serve_launches}
+    # phase 18 (its generate replaces the engine's step metrics, read above)
+    captured_check(torch, eng, prompts, "llama4-scout-17b-a16e", card, build,
+                   ("encode_lookup", "pack_blocks", "histogram256",
+                    "decode_chunks_multisym"))
 
     # ---- decode against prefill: replay the engine's steps, then one
     # prefill of the whole sequence; each MoE layer's inputs recorded
@@ -3518,6 +3716,10 @@ def deepseek_phase(torch, dev, card, build):
              / totals["act_raw_bits"],
              "moe_wire_raw_bits_per_step": per_step,
              "launches": serve_launches}
+    # phase 18 (its generate replaces the engine's step metrics, read above)
+    captured_check(torch, eng, prompts, "deepseek-v3-671b", card, build,
+                   ("encode_lookup", "pack_blocks", "histogram256",
+                    "decode_chunks_multisym"))
 
     # ---- decode against one prefill of the whole sequence: the MLA
     # mixers' outputs and the MoE layer's input (before any router) on
@@ -3994,6 +4196,10 @@ def serve_three_ways(torch, dev, params, cfg, books, prompts, path, card,
           f"(chunk {KV_CHUNK}): tokens and every step's logits equal to the "
           f"raw engine's, KV coded/raw {kv_ratio:.4f}; peak memory "
           f"{serve_peak:.2f} GB [{card}]")
+    # phase 18 (its generate replaces the engine's step metrics, read above)
+    captured_check(torch, eng, prompts, cfg.name, card, build,
+                   ("encode_lookup", "pack_blocks", "histogram256",
+                    "decode_chunks_multisym"), prefix=prefix)
     return serve, toks, launches, coded
 
 

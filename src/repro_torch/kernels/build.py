@@ -14,10 +14,21 @@ own library.  Every failure raises with the compiler's output.
 
 The launch counters live here too: each wrapper adds one to its entry
 of ``LAUNCHES`` where it launches its kernel, and nowhere else, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  A CUDA graph's
+replay runs no Python: a captured step takes back what its capture
+counted (``add_launches`` with the negated counts) and adds it again on
+every replay.
+
+B1 and B5 keep a small accumulator on the device for each stream they
+run on (``accumulator_key``).  Work captured in a graph runs whenever
+the graph is replayed, on whatever stream, so a captured step warms up
+and captures inside ``private_accumulators(owner)``: its launches get
+accumulators of their own, which no other graph or eager call shares.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -29,6 +40,7 @@ from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 __all__ = ["CSRC", "SOURCES", "LAUNCHES", "reset_launches", "count_launch",
+           "add_launches", "accumulator_key", "private_accumulators",
            "build_dir", "nvcc_path", "build_all", "library", "build_logs",
            "bind", "check", "raise_on", "raw_stream", "P", "I", "LL", "U"]
 
@@ -56,6 +68,36 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (name -> launches) to ``LAUNCHES``: a graph's
+    replay adds the launches its capture recorded."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+_OWNER: contextvars.ContextVar = contextvars.ContextVar(
+    "accumulator_owner", default=None)
+
+
+def accumulator_key(index: int, stream: int):
+    """The key of a kernel's device accumulator: the device, the raw
+    stream and the owner that ``private_accumulators`` set (None for
+    eager calls)."""
+    return index, stream, _OWNER.get()
+
+
+@contextlib.contextmanager
+def private_accumulators(owner):
+    """Within: B1's and B5's accumulators are keyed by ``owner`` too, so
+    launches captured in a graph never share one with another graph or
+    with eager calls on the same stream."""
+    token = _OWNER.set(owner)
+    try:
+        yield
+    finally:
+        _OWNER.reset(token)
 
 
 def build_dir() -> Path:

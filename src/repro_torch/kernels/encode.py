@@ -22,14 +22,16 @@ from typing import Dict, Tuple
 
 import torch
 
-from .build import LL, P, bind, check, count_launch, raise_on, raw_stream
+from .build import (LL, P, accumulator_key, bind, check, count_launch,
+                    raise_on, raw_stream)
 
 __all__ = ["encode_lookup", "encode_lookup_plain"]
 
 # The kernel's bit-total accumulator (sum, ticket) for each (device,
-# stream) it has run on: zeroed once, and left zero by every launch, so a
-# stream's calls, which run one after another, share it.
-_ACC: Dict[Tuple[int, int], torch.Tensor] = {}
+# stream, owner) it has run on (``build.accumulator_key``): zeroed once,
+# and left zero by every launch, so a stream's calls, which run one
+# after another, share it; a captured graph's launches have their own.
+_ACC: Dict[Tuple[int, int, object], torch.Tensor] = {}
 
 
 def encode_lookup_plain(symbols: torch.Tensor, lut: torch.Tensor
@@ -71,9 +73,10 @@ def encode_lookup(symbols: torch.Tensor, lut: torch.Tensor
     n4 = (n + 3) & ~3           # codes, lengths (n4 int32 each), the total
     out = sym.new_empty(n4 + 1, dtype=torch.int64)
     stream = raw_stream(idx)
-    acc = _ACC.get((idx, stream))
+    key = accumulator_key(idx, stream)
+    acc = _ACC.get(key)
     if acc is None:
-        acc = _ACC[(idx, stream)] = sym.new_zeros(2, dtype=torch.int64)
+        acc = _ACC[key] = sym.new_zeros(2, dtype=torch.int64)
     fn = bind("encode", "encode_lookup_launch", [P, P, P, P, LL, P])
     args = (sym.data_ptr(), lut.data_ptr(), out.data_ptr(), acc.data_ptr(),
             n, stream)

@@ -25,7 +25,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from .build import LL, P, I, bind, count_launch, raise_on, raw_stream
+from .build import (LL, P, I, accumulator_key, bind, count_launch,
+                    raise_on, raw_stream)
 
 __all__ = ["histogram256", "histogram256_plain", "launch_grid", "wave_ctas"]
 
@@ -36,10 +37,11 @@ THREADS = 256            # threads a CTA, 8 warps with 256 bins each
 MIN_LOADS = 4            # 16-byte loads a thread at least, before the
                          # grid grows
 
-# Per device: the CTAs of one wave.  Per (device, stream): the kernel's
-# accumulator, 256 sums and a ticket, which every launch leaves zero.
+# Per device: the CTAs of one wave.  Per (device, stream, owner)
+# (``build.accumulator_key``): the kernel's accumulator, 256 sums and a
+# ticket, which every launch leaves zero.
 _WAVE: Dict[int, int] = {}
-_ACC: Dict[Tuple[int, int], torch.Tensor] = {}
+_ACC: Dict[Tuple[int, int, object], torch.Tensor] = {}
 
 
 def launch_grid(n: int, wave: int) -> int:
@@ -89,9 +91,10 @@ def histogram256(symbols: torch.Tensor) -> torch.Tensor:
         sym = sym.contiguous()
     idx = sym.get_device()
     stream = raw_stream(idx)
-    acc = _ACC.get((idx, stream))
+    key = accumulator_key(idx, stream)
+    acc = _ACC.get(key)
     if acc is None:
-        acc = _ACC[(idx, stream)] = sym.new_zeros(257, dtype=torch.int64)
+        acc = _ACC[key] = sym.new_zeros(257, dtype=torch.int64)
     n = sym.numel()
     out = sym.new_empty(256, dtype=torch.int64)
     fn = bind("histogram", "histogram256_launch", [P, LL, P, P, I, I, P])

@@ -167,9 +167,11 @@ def block_cache_pspec(kind: str, cfg: ModelConfig, axes: Axes):
     return pspec
 
 
-def block_decode(kind: str, params, x, cache, pos: int, cfg: ModelConfig):
-    """One token through the block; the cache (the KV slots or the
-    recurrent state, and an MoE block's counts) is updated in place."""
+def block_decode(kind: str, params, x, cache, pos, cfg: ModelConfig):
+    """One token through the block at position ``pos`` (a 0-d int32
+    tensor on x's device, or an int), passed on to the mixer and the MoE
+    as it is; the cache (the KV slots or the recurrent state, and an MoE
+    block's counts) is updated in place."""
     mixer, windowed, ffn = _parse(kind)
     mixer_cache = cache["mixer"] if ffn == "moe" else cache
     h = rmsnorm_apply(params["norm_mix"], x, cfg.norm_eps)

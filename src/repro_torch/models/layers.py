@@ -14,6 +14,11 @@ The cached decode updates the KV cache in place (the reference returns
 a new cache): the caller's cache tensors are the step's output.  Every
 cache write casts through ``cache_cast``, XLA's rule, so a
 ``float8_e4m3fn`` cache holds the reference's bits (NaN past 464).
+Its position ``pos`` is a 0-d int32 tensor on the step's device (the
+reference's traced ``jnp.int32``) or a Python int (``decode_pos`` makes
+it the tensor): the slot, the cache writes and the mask are tensor ops,
+so no op reads the position back to the host and a CUDA graph can
+capture the step with ``pos`` in a device buffer.
 """
 from __future__ import annotations
 
@@ -70,6 +75,46 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # a value written into a KV cache, cast as the reference's ``astype``
 # casts it under XLA: to float8_e4m3fn NaN past 464, where torch saturates
 cache_cast = xla_cast
+
+
+def decode_pos(pos, device) -> torch.Tensor:
+    """A decode step's position as a 0-d int32 tensor on ``device``: a
+    tensor is taken as it is, an int is filled in on the device (a fill,
+    not a copy from the host)."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
+def decode_slot(pos: torch.Tensor, slots: int, window: int) -> torch.Tensor:
+    """The cache slot of position ``pos``, as a one-element int64 index:
+    ``pos % slots`` in a ring (``window > 0``), else ``pos`` clamped to
+    the last slot."""
+    slot = (torch.remainder(pos, slots) if window > 0
+            else torch.clamp(pos, max=slots - 1))
+    return slot.reshape(1).to(torch.int64)
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor,
+               value: torch.Tensor) -> None:
+    """``cache[:, slot] = value`` (value (B, ...), cast by ``cache_cast``)
+    through ``index_copy_``, which reads no index back to the host (an
+    assignment at a tensor index would); a float8 cache is written as
+    its uint8 bits (``index_copy_`` has no float8 kernel on the CPU)."""
+    v = cache_cast(value, cache.dtype).unsqueeze(1)
+    if cache.is_floating_point() and cache.element_size() == 1:
+        cache, v = cache.view(torch.uint8), v.view(torch.uint8)
+    cache.index_copy_(1, slot, v)
+
+
+def valid_slots(cpos: torch.Tensor, pos: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """The slots a decode at ``pos`` attends to: filled, not in its
+    future and, in a ring, within the window."""
+    valid = (cpos >= 0) & (cpos <= pos)
+    if window > 0:
+        valid = valid & (pos - cpos < window)
+    return valid
 
 
 # ----------------------------------------------------------- GQA attention
@@ -195,22 +240,21 @@ def attn_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
     return y, cache
 
 
-def attn_decode(params, x, cache, pos: int, cfg: ModelConfig, *,
+def attn_decode(params, x, cache, pos, cfg: ModelConfig, *,
                 window: int = 0):
-    """x (B, 1, d): the new token at absolute position ``pos``.  Writes
-    its K/V into ``cache`` in place and returns (y, cache)."""
+    """x (B, 1, d): the new token at absolute position ``pos`` (a 0-d
+    int32 tensor on x's device, or an int).  Writes its K/V and position
+    into ``cache`` in place and returns (y, cache)."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = decode_pos(pos, x.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
     q, k, v = _qkv(params, x, cfg, positions)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    slots = ck.shape[1]
-    slot = pos % slots if window > 0 else min(pos, slots - 1)
-    ck[:, slot] = cache_cast(k[:, 0], ck.dtype)
-    cv[:, slot] = cache_cast(v[:, 0], cv.dtype)
-    cpos[slot:slot + 1].fill_(pos)
-    valid = (cpos >= 0) & (cpos <= pos)
-    if window > 0:
-        valid = valid & (pos - cpos < window)
+    slot = decode_slot(pos, ck.shape[1], window)
+    write_slot(ck, slot, k[:, 0])
+    write_slot(cv, slot, v[:, 0])
+    cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
+    valid = valid_slots(cpos, pos, window)
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype),
                   valid[None, None, None, None, :], cfg)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])

@@ -26,8 +26,9 @@ import torch
 
 from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
                      truncated_normal_init)
-from .layers import (_NEG, _seq_mask, cache_cast, rmsnorm_apply,
-                     rmsnorm_init, rmsnorm_pspec, rope_apply)
+from .layers import (_NEG, _seq_mask, cache_cast, decode_pos, decode_slot,
+                     rmsnorm_apply, rmsnorm_init, rmsnorm_pspec, rope_apply,
+                     valid_slots, write_slot)
 
 __all__ = ["mla_init", "mla_pspec", "mla_apply", "mla_cache_init",
            "mla_cache_pspec", "mla_decode", "mla_prefill"]
@@ -128,25 +129,24 @@ def mla_cache_pspec(cfg: ModelConfig, axes: Axes):
             "pos": PSpec(None)}
 
 
-def mla_decode(params, x, cache, pos: int, cfg: ModelConfig, *,
+def mla_decode(params, x, cache, pos, cfg: ModelConfig, *,
                window: int = 0):
-    """Absorbed-form one-token decode at absolute position ``pos``
-    against the latent cache, which it updates in place; returns
-    (y (B, 1, d), cache)."""
+    """Absorbed-form one-token decode at absolute position ``pos`` (a 0-d
+    int32 tensor on x's device, or an int; ``layers.attn_decode``'s
+    tensor ops, no host read) against the latent cache, which it updates
+    in place; returns (y (B, 1, d), cache)."""
     b = x.shape[0]
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = decode_pos(pos, x.device)
+    positions = pos.reshape(1, 1).expand(b, 1)
     q_nope, q_rope = _project_q(params, x, cfg, positions)    # (B,1,H,·)
     c_kv, k_rope = _project_kv_latent(params, x, cfg, positions)
     ckv, krope, cpos = cache["ckv"], cache["krope"], cache["pos"]
-    slots = ckv.shape[1]
-    slot = pos % slots if window > 0 else min(pos, slots - 1)
-    ckv[:, slot] = cache_cast(c_kv[:, 0], ckv.dtype)
-    krope[:, slot] = cache_cast(k_rope[:, 0], krope.dtype)
-    cpos[slot:slot + 1].fill_(pos)
-    valid = (cpos >= 0) & (cpos <= pos)
-    if window > 0:
-        valid = valid & (pos - cpos < window)
+    slot = decode_slot(pos, ckv.shape[1], window)
+    write_slot(ckv, slot, c_kv[:, 0])
+    write_slot(krope, slot, k_rope[:, 0])
+    cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
+    valid = valid_slots(cpos, pos, window)
 
     # weight absorption: wk_b folded into the query once a step
     q_abs = torch.einsum("bshk,chk->bshc", q_nope, params["wk_b"])

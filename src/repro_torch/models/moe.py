@@ -59,7 +59,7 @@ import torch.nn.functional as F
 
 from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
                      truncated_normal_init)
-from .layers import mlp_apply, mlp_init, mlp_pspec
+from .layers import decode_pos, mlp_apply, mlp_init, mlp_pspec
 
 __all__ = ["moe_init", "moe_pspec", "moe_apply", "moe_prefill", "moe_decode",
            "moe_apply_a2a", "moe_apply_a2a_block", "moe_apply_eshard",
@@ -81,10 +81,12 @@ def moe_stream_capacity(n_tokens, cfg: ModelConfig) -> torch.Tensor:
     device).  The float32 op order is ``moe_stream_capacity_host``'s, so
     both give the reference's integers."""
     t = torch.as_tensor(n_tokens).to(torch.float32)
-    f = torch.tensor(cfg.experts_per_token / cfg.n_experts,
-                     dtype=torch.float32, device=t.device)
-    cf = torch.tensor(cfg.capacity_factor, dtype=torch.float32,
-                      device=t.device)
+    # the constants are filled in on the device, not copied from the
+    # host: a decode step captured in a CUDA graph computes this
+    f = torch.full((), cfg.experts_per_token / cfg.n_experts,
+                   dtype=torch.float32, device=t.device)
+    cf = torch.full((), cfg.capacity_factor, dtype=torch.float32,
+                    device=t.device)
     c = torch.ceil(t * f * cf).to(torch.int32)
     return torch.clamp(((c + 3) // 4) * 4, min=4)
 
@@ -270,25 +272,26 @@ def moe_prefill(params, x, cfg: ModelConfig):
     return _moe_forward(params, x, cfg)
 
 
-def moe_decode(params, x, counts, pos: int, cfg: ModelConfig):
+def moe_decode(params, x, counts, pos, cfg: ModelConfig):
     """One-token MoE step reproducing the forward's streaming capacity.
 
     x (B, 1, d); counts (B, E) int32, the routed totals of tokens < pos,
     **updated in place** (kept and dropped slots both count); ``pos`` the
-    token's absolute position, on the host.  A slot is dropped iff its
-    expert's count has reached ``moe_stream_capacity_host(pos + 1)``,
-    the forward's decision for token ``pos``.  Returns (y (B, 1, d),
-    counts).
+    token's absolute position, a 0-d int32 tensor on x's device (or an
+    int).  A slot is dropped iff its expert's count has reached
+    ``moe_stream_capacity(pos + 1)``, the forward's decision for token
+    ``pos``, computed on the device as the reference computes it from
+    its traced position.  Returns (y (B, 1, d), counts).
     """
     b, _, d = x.shape
     e = cfg.n_experts
     xf = x.reshape(b, d)
     topw, topi, _ = _route_probs(params, xf, cfg)               # (B, k)
-    thr = moe_stream_capacity_host(pos + 1, cfg)
+    thr = moe_stream_capacity(decode_pos(pos, x.device) + 1, cfg)
     keep = counts.gather(1, topi) < thr                          # (B, k)
-    bi = torch.arange(b, device=x.device)[:, None].expand_as(topi)
-    counts.index_put_((bi, topi), torch.ones_like(topi, dtype=counts.dtype),
-                      accumulate=True)
+    # a row's k experts are distinct, so the scatter-add counts each
+    # slot once
+    counts.scatter_add_(1, topi, torch.ones_like(topi, dtype=counts.dtype))
 
     onehot = F.one_hot(topi, e).to(torch.float32)               # (B, k, E)
     sel = (onehot * keep[..., None].to(torch.float32)).to(xf.dtype)

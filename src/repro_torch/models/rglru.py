@@ -163,9 +163,11 @@ def rglru_cache_pspec(cfg: ModelConfig, axes: Axes):
             "conv": PSpec(axes.data_axes, None, m)}
 
 
-def rglru_decode(params, u, cache, pos: int, cfg: ModelConfig):
+def rglru_decode(params, u, cache, pos, cfg: ModelConfig):
     """u (B, 1, d): one recurrent step; writes ``h`` and the conv tail
-    into ``cache`` in place and returns (y (B, 1, d), cache)."""
+    into ``cache`` in place and returns (y (B, 1, d), cache).  ``pos``
+    (a 0-d device tensor or an int, as the attentions take it) is not
+    read: the state carries the past."""
     ut = u[:, 0]
     x = ut @ params["w_in"]                                    # (B, W)
     gate = gelu_tanh(ut @ params["w_gate"])

@@ -227,19 +227,24 @@ def _conv_step(tail, xt, w):
     return out
 
 
-def mamba_decode(params, u, cache, pos: int, cfg: ModelConfig):
+def mamba_decode(params, u, cache, pos, cfg: ModelConfig):
     """u (B, 1, d): one step of the recurrence; writes the state and the
     conv tails into ``cache`` in place and returns (y (B, 1, d),
-    cache)."""
+    cache).  ``pos`` (a 0-d device tensor or an int, as the attentions
+    take it) is not read: the state carries the past."""
     bsz = u.shape[0]
     h, p_ = _hp(cfg)
     z, x, b, c, dt = (t[:, 0] for t in _project(params, u, cfg))
     x = silu(_conv_step(cache["conv_x"], x, params["conv_x"]))
     b = silu(_conv_step(cache["conv_B"], b, params["conv_B"]))
     c = silu(_conv_step(cache["conv_C"], c, params["conv_C"]))
-    rep = h // cfg.ssm_n_groups
-    bh = torch.repeat_interleave(b, rep, dim=1).to(torch.float32)  # (B,H,N)
-    ch = torch.repeat_interleave(c, rep, dim=1).to(torch.float32)
+    g, n = cfg.ssm_n_groups, cfg.ssm_state
+    # each group's B and C repeated for its heads, in repeat_interleave's
+    # order
+    bh = b[:, :, None].expand(bsz, g, h // g, n).reshape(bsz, h, n).to(
+        torch.float32)                                             # (B,H,N)
+    ch = c[:, :, None].expand(bsz, g, h // g, n).reshape(bsz, h, n).to(
+        torch.float32)
 
     da = torch.exp(dt * -torch.exp(params["A_log"])[None, :])      # (B,H)
     xf = x.to(torch.float32)

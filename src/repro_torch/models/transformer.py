@@ -27,8 +27,9 @@ from .blocks import (block_apply, block_cache_init, block_cache_pspec,
                      block_decode, block_init, block_prefill, block_pspec)
 from .common import (Axes, ModelConfig, PSpec, pspec_map, tree_index,
                      tree_leaves, tree_map, tree_stack, tree_unflatten)
-from .layers import (embed_apply, embed_init, embed_pspec, rmsnorm_apply,
-                     rmsnorm_init, rmsnorm_pspec, unembed_apply)
+from .layers import (decode_pos, embed_apply, embed_init, embed_pspec,
+                     rmsnorm_apply, rmsnorm_init, rmsnorm_pspec,
+                     unembed_apply)
 from .moe import current_mesh
 
 __all__ = ["model_init", "model_pspec", "fsdp_pspec", "forward",
@@ -236,10 +237,18 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return _logits(params, x, batch, cfg), caches
 
 
-def decode_step(params, tokens: torch.Tensor, caches, pos: int,
+def decode_step(params, tokens: torch.Tensor, caches, pos,
                 cfg: ModelConfig):
     """One autoregressive step: tokens (B, 1) at absolute position ``pos``.
-    Returns (logits (B, 1, vocab), caches), the caches updated in place."""
+    Returns (logits (B, 1, vocab), caches), the caches updated in place.
+
+    ``pos`` is a 0-d int32 tensor on the tokens' device (the reference's
+    traced ``jnp.int32``) or an int, which becomes that tensor here; no
+    op of the step reads it, or any other value, back to the host, so
+    ``serve.Engine`` captures the step once as a CUDA graph and replays
+    it with ``pos`` in a device buffer.  Both forms give the same bits.
+    """
+    pos = decode_pos(pos, tokens.device)
     x = embed_apply(params["embed"], tokens, cfg)
     for gi, si, r, kind, p in _layers(cfg, params):
         x, _ = block_decode(kind, p, x, tree_index(caches[gi][si], r), pos,

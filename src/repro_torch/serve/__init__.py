@@ -1,3 +1,3 @@
-from .engine import Engine, ServeConfig, make_serve_step
+from .engine import CapturedStep, Engine, ServeConfig, make_serve_step
 
-__all__ = ["Engine", "ServeConfig", "make_serve_step"]
+__all__ = ["CapturedStep", "Engine", "ServeConfig", "make_serve_step"]

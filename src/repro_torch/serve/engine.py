@@ -31,6 +31,15 @@ wire itself).  MLA models serve from their latent caches
 ``CodedKVStore`` codes only ``{k, v, pos}`` nodes, so a latent cache or
 a recurrent state stays raw, as in the reference.
 
+The compiled decode step: on CUDA the engine runs ``make_serve_step``'s
+step as a ``CapturedStep``, captured once as a CUDA graph for each batch
+size (and each book epoch under a lifecycle manager) and replayed for
+every decode step, with the token, the position and the caches in the
+graph's own device buffers (the reference's ``jax.jit`` of the step with
+its traced ``jnp.int32`` position).  ``make_serve_step`` is its plain
+version, and the step the engine runs on the CPU.  The prefill runs
+eagerly, once a request.
+
 Prefix embeddings: ``generate(prompt_tokens, n, prefix_embeds=)`` runs
 the prefill on [prefix] + [prompt] (a VLM's patch embeddings), so the
 caches (and a coded KV store's first ingest) hold the prefix's slots
@@ -40,6 +49,7 @@ refuses it.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -53,10 +63,13 @@ from ..comm.transport import (decode_blocks, encode_planes, moe_ep_raw_bits,
 from ..core.codec import get_codec
 from ..core.encoder import DEFAULT_CHUNK, chunk_counts_for, concat_chunks
 from ..device import metrics_to_host, resolve_device
-from ..models.common import ModelConfig
+from ..kernels.build import LAUNCHES, add_launches, private_accumulators
+from ..models.common import ModelConfig, tree_leaves, tree_map
+from ..models.layers import decode_pos
 from ..models.transformer import decode_step, prefill
 
-__all__ = ["ServeConfig", "Engine", "make_serve_step", "make_activation_probe"]
+__all__ = ["ServeConfig", "Engine", "CapturedStep", "make_serve_step",
+           "make_activation_probe"]
 
 _SCALARS = ("act_raw_bits", "act_coded_bits", "act_wire_raw_bits",
             "act_wire_coded_bits", "act_decoded_bits", "act_decode_chunks",
@@ -152,11 +165,13 @@ def make_serve_step(model_cfg: ModelConfig,
                     ep_degree: int = 1):
     """(params, tokens (B,1), caches, pos) → (logits, caches, metrics):
     one decode step, then ``make_activation_probe``'s metrics of its
-    logits and, with ``ep_degree > 1``, ``moe_wire_raw_bits``."""
+    logits and, with ``ep_degree > 1``, ``moe_wire_raw_bits``.  ``pos``
+    is a 0-d int32 tensor on the step's device or an int.  Run eagerly,
+    this is the plain version of ``CapturedStep``."""
     probe = make_activation_probe(comp_spec, decode_chunk=decode_chunk,
                                   tp_degree=tp_degree)
 
-    def step(params, tokens, caches, pos: int):
+    def step(params, tokens, caches, pos):
         logits, caches = decode_step(params, tokens, caches, pos, model_cfg)
         metrics = probe(logits)
         moe = (moe_ep_raw_bits(model_cfg, tokens.shape[0],
@@ -170,14 +185,119 @@ def make_serve_step(model_cfg: ModelConfig,
     return step
 
 
+_OWNERS = itertools.count()
+
+
+class _Graph:
+    """One capture of a step: its graph, its input buffers (token,
+    position, caches), its outputs and the launches its capture counted.
+    It holds the parameters it was captured with, whose tensors the
+    graph reads."""
+
+    def __init__(self, params, tokens, caches, pos):
+        self.params = params
+        self.tokens = tokens.clone()
+        self.pos = decode_pos(pos, tokens.device).to(torch.int32, copy=True)
+        self.caches = tree_map(torch.clone, caches)
+        self.leaves = tree_leaves(self.caches)
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs = None
+        self.launches: Dict[str, int] = {}
+
+    def load(self, tokens, caches, pos) -> None:
+        """The call's inputs into the buffers, on the device: no host
+        read.  Caches already in the buffers (the last call's output)
+        are not copied."""
+        self.tokens.copy_(tokens)
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(pos)
+        else:
+            self.pos.fill_(pos)
+        leaves = tree_leaves(caches)
+        if len(leaves) != len(self.leaves):
+            raise ValueError(f"{len(leaves)} cache leaves, the captured "
+                             f"step holds {len(self.leaves)}")
+        for dst, src in zip(self.leaves, leaves):
+            if src is not dst:
+                dst.copy_(src)
+
+
+class CapturedStep:
+    """A serve step captured as a CUDA graph and replayed: the port's
+    counterpart of the reference's ``jax.jit`` of ``make_serve_step``.
+
+    Called as the step it wraps, ``(params, tokens (B, 1), caches, pos)
+    → (logits, caches, metrics)``, with ``pos`` an int or a 0-d int32
+    tensor.  The first call for a batch size (and parameter tree)
+    captures: one eager run of ``step`` on scratch copies of the caches
+    (it fills every table, accumulator and launch setting the kernels'
+    wrappers keep for later calls, and leaves the served caches as they
+    are), then the capture, on a stream of its own.  Every call copies
+    its token and position into the graph's buffers, and its caches
+    unless they are the graph's own (the last call's output), then
+    replays.  The logits, caches and metrics it returns are the graph's
+    buffers, which the next call overwrites.  Nothing falls back to the
+    eager step: a capture or replay that fails raises.
+
+    A replay runs no Python, so each one adds to ``kernels.build
+    .LAUNCHES`` the launches its capture counted (and the capture, which
+    launches nothing, takes them back); B1's and B5's accumulators are
+    the graph's own (``kernels.build.private_accumulators``).
+    """
+
+    def __init__(self, step):
+        self.step = step                 # the plain version, run eagerly
+        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+
+    @torch.no_grad()
+    def __call__(self, params, tokens, caches, pos):
+        key = (tokens.shape[0], id(params))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(params, tokens, caches, pos)
+            self._graphs[key] = g
+        else:
+            g.load(tokens, caches, pos)
+        g.graph.replay()
+        add_launches(g.launches)
+        logits, metrics = g.outputs
+        return logits, g.caches, metrics
+
+    def _capture(self, params, tokens, caches, pos) -> _Graph:
+        dev = tokens.device
+        g = _Graph(params, tokens, caches, pos)
+        owner = next(_OWNERS)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream), private_accumulators(owner):
+            self.step(params, g.tokens, tree_map(torch.clone, g.caches),
+                      g.pos)                                  # warm-up
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        before = dict(LAUNCHES)
+        with private_accumulators(owner):
+            with torch.cuda.graph(g.graph, stream=stream):
+                logits, out, metrics = self.step(params, g.tokens, g.caches,
+                                                 g.pos)
+        if out is not g.caches:
+            raise RuntimeError("the captured step did not update its "
+                               "caches in place")
+        g.outputs = (logits, metrics)
+        g.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                      if LAUNCHES[k] != before[k]}
+        add_launches({k: -n for k, n in g.launches.items()})
+        return g
+
+
 class Engine:
     """Batched-request engine over the port's model functions.
 
     Runs on ``device`` (CUDA unless named); the parameters (or the
-    param store) must already lie there.  ``generate`` takes one host
-    sync per decode step for its scalar metrics (a coded KV cache adds
-    its own: see ``memstore.kvstore``), and keeps each step's scalars
-    (plus its wall time, ``step_seconds``) in ``step_metrics``.
+    param store) must already lie there.  On CUDA each decode step is a
+    replay of the step captured for the batch size (``CapturedStep``),
+    on the CPU the plain step.  ``generate`` takes one host sync per
+    decode step for its scalar metrics (a coded KV cache adds its own:
+    see ``memstore.kvstore``), and keeps each step's scalars (plus its
+    wall time, ``step_seconds``) in ``step_metrics``.
 
     With a ``lifecycle`` manager the same copy carries the step's
     ``act_hist_<plane>`` arrays too (kept in ``step_metrics``); the
@@ -260,14 +380,17 @@ class Engine:
                          "with activation books, or a param_store")
 
     def _compile_step(self):
-        """The decode step for the current spec: built directly, or
-        through the lifecycle's epoch-keyed cache under a name that
-        carries every build-changing knob (engine degrees and the spec's
-        whole wire config), so two engines sharing one manager never
-        share a step built for another configuration."""
+        """The decode step for the current spec (a ``CapturedStep`` on
+        CUDA, which captures at its first call for each batch size; the
+        plain step on the CPU): built directly, or through the
+        lifecycle's epoch-keyed cache under a name that carries every
+        build-changing knob (engine degrees and the spec's whole wire
+        config), so two engines sharing one manager never share a step
+        built for another configuration."""
         def build(_=None):
-            return make_serve_step(self.cfg, self._spec, tp_degree=self._tp,
+            step = make_serve_step(self.cfg, self._spec, tp_degree=self._tp,
                                    ep_degree=self._ep)
+            return CapturedStep(step) if self.device.type == "cuda" else step
         if self.lifecycle is None:
             return build()
         s = self._spec
@@ -328,9 +451,13 @@ class Engine:
                             else {self._spec.book_epoch: self._spec})
         for i in range(max_new_tokens - 1):
             t0 = time.perf_counter()
+            # on CUDA a replay: the token, the position and (in the first
+            # step, or from a coded store's read) the caches are copied
+            # into the graph's buffers on the device
             logits, caches, m = self._step(self.params, tok, caches,
                                            prompt_len + i)
             if self._kv is not None:
+                # outside the graph, as outside the reference's jit
                 self._kv.ingest(caches)
                 caches = self._kv.read(caches)
             tok = self._sample(logits)
