@@ -56,7 +56,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    chunks, carry B2 chunk bits equal to histogram (B5) . lengths, and the
    kernels' launch counters must show the path ran through them; the
    decode step without the wire is timed on the device (profiler) at
-   batch 4 over 96 cache slots;
+   batch 4 over 96 cache slots, and the eager 4 x 64 prefill's host ms
+   (until the call returns) beside its events and device ms;
 5. coded-at-rest serve (``repro_torch.launch.dryrun.memstore_check`` at
    full width), under Huffman and QLC: the whole tree coded into a
    ``CompressedParamStore`` on the card, materialized bit for bit, the
@@ -96,7 +97,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    stream (one chunk of 1 024 000 symbols).  On one card a loopback hop
    moves no bytes over a link: the times are the codec's cost a hop;
 7. train ``gemma2-2b`` at full width (depth not cut) through
-   ``repro_torch.launch.train.train``: the seed-0 params, batch 4 x 128
+   ``repro_torch.launch.train.train`` (on the card each epoch's first
+   step captures a ``train.CapturedTrainStep``, the next replays it):
+   the seed-0 params, batch 4 x 128
    of ``SyntheticDataset`` tokens, AdamW lr 1e-3 with the cosine
    schedule, 8 steps with ``--compress`` semantics (books bootstrapped
    from the params, ``DriftThresholds(min_symbols=1024)``, a refresh
@@ -104,7 +107,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    steps (``launches_by_path["train"]``: B5 on every gradient leaf and
    plane).  Checked: finite losses, ``grad_raw_bits`` = 16 x params, the
    bootstrap books go stale and an epoch flips, ``n_recompiles`` = the
-   epochs built, B5 launched; then on one repeated batch (lr 1e-4) every
+   epochs built, B5 launched, the allocator's allocated bytes after each
+   epoch flip (printed with the reserved) at most 1 % of the card's
+   memory past the first flip's (``memory_after_flips``: the superseded
+   step's graph, buffers and pool are released); then on one repeated
+   batch (lr 1e-4) every
    leaf's B5 histograms equal the plain histogram of its bf16 planes, the
    probe's coded bits equal hist . lengths in int64, the refreshed books
    code the gradients at a lower coded/raw than the bootstrap books, and
@@ -123,6 +130,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    one refresh, every step lossless with B2 bits = B5 . the lengths of
    the epoch in force, the tokens of the same engine without
    ``lifecycle=`` (``launches_by_path["lifecycle"]``: B1, B2, B4, B5);
+   allocated memory after each of its epoch flips held as phase 7's;
 9. MoE: ``llama4-scout-17b-a16e`` at full width with its depth cut to 4
    of 48 layers (10.88 B parameters from seed 0; the gemma2-2b weights
    are freed first).  Launch counts are reset before and read after the
@@ -257,7 +265,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and every step's logits equal to the raw engine's bit for bit, and a
    replay of the steps against one prefill of the prefix and the whole
    sequence within ``DECODE_TOL``.  Timed: the prefill of 4 x (1024 +
-   64) (events, device), a decode step (host median, device ms; its
+   64) (host until the eager call returns, events, device), a decode
+   step (host median, device ms; its
    bound the 38.6 GB of weights a step reads, the head included and the
    table's 4 rows not), peak memory; then the ``reduced()`` step (a
    16-patch prefix) on the card and the CPU in bf16, held to
@@ -337,11 +346,33 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    eager and captured, over the same steps (each with its metrics
    copy), the device ms of one replay by CUDA events, and the idle
    share 1 - device / captured host median, without the profiler;
-19. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+19. the captured train step: ``gemma2-2b`` at 4 x 128, ``hubert-xlarge``
+   at 4 x 1024 (``grad_accum`` 2) and ``mamba2-780m`` at 1 x 4096, each
+   at full width and depth from seed 0 (``captured_train_phase``): 12
+   steps as ``launch.train.train`` takes them, with the books'
+   thresholds at 0 and one refresh, after step 1, so the run crosses one
+   epoch flip; first with the plain step, keeping each step's metrics
+   and an int64 checksum of every state leaf, then, the first run
+   freed, with ``CapturedTrainStep`` (a capture at steps 0 and 2, ten
+   replays): every metric (loss, grad norm, lr, the probe's bits and
+   histograms, ...) and every leaf's checksum equal bit for bit (where
+   they do not, a second plain run tells whether the plain step is
+   itself not reproducible: if it is reproducible, the run fails; if
+   not, losses and grad norms are held within ``STEP_TOL`` and the
+   differing leaves printed); ``LAUNCHES`` grown on every replay by the
+   capture's counts, B5 among them; every replay called in torch's sync
+   debug mode "error" (the metrics copy outside it).  Printed: the host
+   median of a step (the step and its metrics copy) over the last 8
+   steps of the second epoch, plain and captured, the device ms of one
+   replay (CUDA events), the idle share 1 - device / captured host
+   median, the warm-up and capture seconds and the peak memory
+   (``launches_by_path["captured_train"]``: the captured runs);
+20. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
    ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
    ``{"stats": ...}``, one ``{"examples": ...}``, one
-   ``{"mamba2_train": ...}`` and one ``{"captured": ...}`` record, one
+   ``{"mamba2_train": ...}``, one ``{"captured": ...}`` and one
+   ``{"captured_train": ...}`` record, one
    ``{"kernels": [...]}`` record (B1-B8, with ``launches_by_path`` for
    every path), then ``{"ok": true, "device": {...}}``.
 
@@ -640,6 +671,27 @@ def host_us(torch, fn, reps: int = 200, rounds: int = 3) -> float:
         best = min(best, (time.perf_counter() - t0) / reps)
         torch.cuda.synchronize()
     return best * 1e6
+
+
+def eager_reading(torch, fn, rounds: int = 3) -> dict:
+    """An eager call's host ms (the time until ``fn`` returns, no sync:
+    the least of ``rounds`` calls, each after a sync), its wall ms (CUDA
+    events around 2 calls) and device ms and device operations a call
+    (the profiler's device events), after one warm-up call.  Host ms
+    near the device's means the call is held by the device (or by a full
+    launch queue), not by Python."""
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    dev, ops = device_ms(torch, fn, 2)
+    return {"host_ms": min(host), "host_ms_all": host,
+            "wall_ms": cuda_ms(torch, fn, 2), "device_ms": dev,
+            "device_ops": ops}
 
 
 def interleaved(fns, measure, rounds: int = 5):
@@ -1065,6 +1117,14 @@ def main() -> int:
           f"{runs['no_wire']['decode_step_ms_median']:.3f} ms, "
           f"{runs['no_wire']['decode_step_device_ms']:.3f} ms device "
           f"[{card}]")
+    # the eager prefill of a request (4 x 64): host beside device
+    with torch.no_grad():
+        pre = runs["prefill"] = eager_reading(torch, lambda: prefill(
+            params, {"tokens": prompts}, cfg, PROMPT + NEW)[0])
+    print(f"prefill {BATCH} x {PROMPT} (eager): host {pre['host_ms']:.3f} ms "
+          f"(until the call returns), wall {pre['wall_ms']:.3f} ms "
+          f"(events), device {pre['device_ms']:.3f} ms in "
+          f"{pre['device_ops']:.0f} device ops [{card}]")
 
     # Output check on a small input: one decode step after a prefill
     # agrees with the full-sequence forward at full width (bf16).
@@ -1213,7 +1273,11 @@ def main() -> int:
               f"share {r['idle_share']:.3f}; replay = eager bit for bit over "
               f"{r['steps_compared']} steps [{card}]")
 
-    # ------------------------------------------------------ 19. records
+    # ------------ 19. the captured train step against the eager step
+    phase("19. captured train step (gemma2-2b, hubert-xlarge, mamba2-780m)")
+    ct_rec, ct_launches = captured_train_phase(torch, dev, card, build)
+
+    # ------------------------------------------------------ 20. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1229,7 +1293,8 @@ def main() -> int:
              "deepseek": ds_launches, **rec_launches,
              "internvl": vlm_launches, "hubert": audio_launches,
              "hubert_train": audio_train_launches, "stats": stats_launches,
-             "examples": ex_launches, "mamba2_train": mamba_launches}
+             "examples": ex_launches, "mamba2_train": mamba_launches,
+             "captured_train": ct_launches}
     kernels = []
     for k, (tag, src, replaces) in meta.items():
         t = dict(timing[k])
@@ -1282,6 +1347,7 @@ def main() -> int:
     print(json.dumps({"card": card, "examples": ex_rec}))
     print(json.dumps({"card": card, "mamba2_train": mamba_rec}))
     print(json.dumps({"card": card, "captured": CAPTURED}))
+    print(json.dumps({"card": card, "captured_train": ct_rec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1884,9 +1950,9 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
          f"{type(cap).__name__}, not a CapturedStep")
     graph = cap._graphs.get((prompts.shape[0], id(eng.params)))
     need(graph is not None, f"{path}: generate captured no graph")
-    need(all(graph.launches.get(k, 0) > 0 for k in expect),
-         f"{path}: the capture counted {graph.launches}, not each of "
-         f"{expect}")
+    counted = graph.capture.launches
+    need(all(counted.get(k, 0) > 0 for k in expect),
+         f"{path}: the capture counted {counted}, not each of {expect}")
 
     # ---- replay vs eager, bit for bit, with each side's host time
     batch = {"tokens": prompts}
@@ -1909,8 +1975,8 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
             host["captured"].append(time.perf_counter() - t0)
             grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES
                     if build.LAUNCHES[k] != before[k]}
-            need(grew == graph.launches, f"{path} replay {i}: launches grew "
-                 f"by {grew}, the capture counted {graph.launches}")
+            need(grew == counted, f"{path} replay {i}: launches grew by "
+                 f"{grew}, the capture counted {counted}")
             t0 = time.perf_counter()
             le, ecaches, me = cap.step(eng.params, tok.clone(), ecaches, pos)
             metrics_to_host(me)
@@ -1955,7 +2021,7 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
         t_start = torch.cuda.Event(enable_timing=True)
         t_end = torch.cuda.Event(enable_timing=True)
         t_start.record()
-        graph.graph.replay()
+        graph.capture.graph.replay()
         t_end.record()
         t_end.synchronize()
         dev_ms.append(t_start.elapsed_time(t_end))
@@ -1968,7 +2034,7 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
     eager_ms = median(host["eager"]) * 1e3
     device = median(dev_ms)
     rec = {"steps_compared": CAPTURE_STEPS, "replay_equals_eager": True,
-           "launches_a_replay": graph.launches,
+           "launches_a_replay": counted,
            "sync_free_replays": SYNC_FREE_NEW - 1,
            "host_ms_median_eager": eager_ms,
            "host_ms_median_captured": cap_ms,
@@ -1978,11 +2044,253 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
     CAPTURED[path] = rec
     print(f"{path} captured step: {CAPTURE_STEPS} replays = the eager step "
           f"bit for bit (logits, caches, metrics), launches a replay "
-          f"{graph.launches}, {SYNC_FREE_NEW - 1} replays without a host "
+          f"{counted}, {SYNC_FREE_NEW - 1} replays without a host "
           f"sync; host median a step {eager_ms:.3f} ms eager, {cap_ms:.3f} "
           f"ms captured; device {device:.3f} ms a replay (events), idle "
           f"share {rec['idle_share']:.3f} ({rec['seconds']:.1f} s) [{card}]")
     return rec
+
+
+# ------------------------------------------- 19. the captured train step
+CT_STEPS, CT_FLIP = 12, 1     # steps a run; the epoch flips after step 1
+CT_MEDIAN = 8                 # the last steps of epoch 2, in the medians
+CT_REPLAYS = 3                # replays timed by CUDA events
+
+
+def state_checksums(torch, state, block: int = 1 << 26) -> list:
+    """One int64 a state leaf: its elements' bits (int16 for bf16, int32
+    for float32 and int32) times (index mod 65521) + 1, summed (wrapping
+    in int64), a block at a time."""
+    from repro_torch.models.common import tree_leaves
+    out = []
+    for t in tree_leaves(state):
+        flat = t.reshape(-1)
+        if t.is_floating_point():
+            flat = flat.view(torch.int16 if t.element_size() == 2
+                             else torch.int32)
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, flat.numel(), block):
+            part = flat[i:i + block].to(torch.int64)
+            w = torch.arange(i, i + part.numel(), dtype=torch.int64,
+                             device=t.device) % 65521 + 1
+            total += (part * w).sum()
+        out.append(int(total))
+    return out
+
+
+def captured_train_run(torch, dev, cfg, batch, seq, grad_accum, captured,
+                       build) -> dict:
+    """``CT_STEPS`` train steps of ``cfg`` at full width from seed 0
+    (params, data), as ``launch.train.train`` runs them but with an
+    epoch flip forced after step ``CT_FLIP`` (thresholds 0): the plain
+    step or a ``CapturedTrainStep``.  Each step's host time (the step and
+    its metrics copy, after a sync) and metrics; a captured run's replays
+    in sync debug mode "error", each growing ``LAUNCHES`` by its
+    capture's counts; then every state leaf's checksum, the peak memory
+    and, captured, ``CT_REPLAYS`` replays' device ms by CUDA events."""
+    from repro_torch.capture import release
+    from repro_torch.data import DataConfig, SyntheticDataset
+    from repro_torch.device import metrics_to_host
+    from repro_torch.launch.train import bootstrap_codebooks
+    from repro_torch.lifecycle import BookLifecycleManager, DriftThresholds
+    from repro_torch.models import model_init
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule
+    from repro_torch.train import (CapturedTrainStep, make_train_step,
+                                   train_state_init)
+
+    what = f"{cfg.name} {'captured' if captured else 'eager'}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        state = train_state_init(model_init(cfg, gen, device=dev))
+    mgr = BookLifecycleManager(thresholds=DriftThresholds(
+        kl_bits=0.0, excess_bits=0.0, min_symbols=1, patience=1))
+    bootstrap_codebooks(state, mgr)
+    sched = cosine_schedule(TRAIN_LR, warmup=1, total=CT_STEPS)
+
+    def build_step(m):
+        step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), sched,
+                               grad_accum=grad_accum,
+                               comp_spec=m.spec("grad", "bf16", mode="ledger"))
+        return CapturedTrainStep(step) if captured else step
+
+    ds = SyntheticDataset(cfg, DataConfig(batch, seq, seed=SEED))
+    data = [{k: torch.from_numpy(v).to(dev) for k, v in next(ds).items()}
+            for _ in range(CT_STEPS)]
+    step_fn = mgr.compiled("train_step", build_step)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # no graph object is kept across steps: a released graph must go
+    rows, host_s, captures, replays = [], [], [], 0
+    for i in range(CT_STEPS):
+        replay = captured and bool(step_fn._graphs)
+        torch.cuda.synchronize()
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        if replay:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step_fn(state, data[i])
+        except RuntimeError as e:
+            raise SmokeError(f"{what} step {i} ({'replay' if replay else
+                             'warm-up and capture' if captured else 'eager'})"
+                             f" failed: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host = metrics_to_host(m)
+        host_s.append(time.perf_counter() - t0)
+        if captured:
+            (cap,) = [g.capture for g in step_fn._graphs.values()]
+            grew = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES
+                    if build.LAUNCHES[k] != before[k]}
+            if replay:
+                replays += 1
+                need(grew == cap.launches and grew.get("histogram256", 0) > 0,
+                     f"{what} replay {i}: launches grew by {grew}, the "
+                     f"capture counted {cap.launches}")
+            else:
+                captures.append(dict(cap.seconds))
+            del cap
+        rows.append(host)
+        mgr.observe_train_metrics(host)
+        if i == CT_FLIP:
+            need(mgr.maybe_refresh() is not None, f"{what}: no epoch flip "
+                 f"after step {i}")
+            release(step_fn)
+            step_fn = mgr.compiled("train_step", build_step)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved = torch.cuda.max_memory_reserved() / 1e9
+    sums = state_checksums(torch, state)
+    rec = {"rows": rows, "host_ms": [x * 1e3 for x in host_s],
+           "checksums": sums, "names": leaf_names(state),
+           "peak_memory_gb": peak, "peak_reserved_gb": peak_reserved,
+           "launches": launches}
+    if captured:
+        need(len(captures) == 2 and replays == CT_STEPS - 2,
+             f"{what}: {len(captures)} captures, {replays} replays")
+        (cap,) = [g.capture for g in step_fn._graphs.values()]
+        dev_ms = []
+        for _ in range(CT_REPLAYS):         # uncounted: a timing, not the path
+            t_start = torch.cuda.Event(enable_timing=True)
+            t_end = torch.cuda.Event(enable_timing=True)
+            t_start.record()
+            cap.graph.replay()
+            t_end.record()
+            t_end.synchronize()
+            dev_ms.append(t_start.elapsed_time(t_end))
+        rec.update(device_ms_replays=dev_ms, launches_a_replay=cap.launches,
+                   capture_seconds=captures, replays=replays)
+        del cap
+    release(step_fn)
+    del state, m, data, step_fn, mgr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def leaf_names(state) -> list:
+    """The state's leaf paths in ``tree_leaves`` order."""
+    from repro_torch.models.common import tree_leaves
+    return (["params" + n for n in tree_leaves(tree_map_names(state.params))]
+            + ["opt/step"]
+            + ["opt/m" + n for n in tree_leaves(tree_map_names(state.opt.m))]
+            + ["opt/v" + n for n in tree_leaves(tree_map_names(state.opt.v))])
+
+
+def run_differences(a: dict, b: dict) -> list:
+    """Where two runs' metrics (step, key) and state checksums (leaf
+    name) differ."""
+    out = []
+    for i, (ra, rb) in enumerate(zip(a["rows"], b["rows"])):
+        if sorted(ra) != sorted(rb):
+            out.append(f"step {i} keys")
+            continue
+        out += [f"step {i} {k}" for k in ra if not (
+            ra[k] == rb[k] if isinstance(ra[k], float)
+            else bool((ra[k] == rb[k]).all()))]
+    out += [n for n, x, y in zip(a["names"], a["checksums"], b["checksums"])
+            if x != y]
+    return out
+
+
+def captured_train_phase(torch, dev, card, build):
+    """Phase 19 (see the module docstring).  Returns the record and the
+    captured runs' launch counts, summed."""
+    from repro_torch.configs import get_config, train_grad_accum
+    from repro_torch.train.step import STEP_TOL
+
+    t_phase = time.perf_counter()
+    out, launches = {}, {k: 0 for k in build.LAUNCHES}
+    for arch, batch, seq in (("gemma2-2b", TRAIN_BATCH, TRAIN_SEQ),
+                             ("hubert-xlarge", HUBERT_BATCH, HUBERT_SEQ),
+                             ("mamba2-780m", 1, MAMBA_SEQ)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        ga = train_grad_accum(arch)
+        eager = captured_train_run(torch, dev, cfg, batch, seq, ga, False,
+                                   build)
+        cap = captured_train_run(torch, dev, cfg, batch, seq, ga, True, build)
+        for k, n in cap["launches"].items():
+            launches[k] += n
+        diffs = run_differences(cap, eager)
+        held = "bit for bit"
+        if diffs:
+            again = captured_train_run(torch, dev, cfg, batch, seq, ga,
+                                       False, build)
+            eager_diffs = run_differences(again, eager)
+            need(eager_diffs, f"{arch}: the captured run differs from the "
+                 f"eager run where two eager runs agree bit for bit: "
+                 f"{diffs[:12]}")
+            rel = {k: max(abs(r[k] - w[k]) / abs(w[k]) for r, w in zip(
+                cap["rows"], eager["rows"])) for k in ("loss", "ce",
+                                                       "grad_norm")}
+            dev_tol = {"loss": max(rel["loss"], rel["ce"]),
+                       "grad_norm": rel["grad_norm"]}
+            need(all(v <= STEP_TOL[k] for k, v in dev_tol.items()),
+                 f"{arch}: captured vs eager {dev_tol} past STEP_TOL; "
+                 f"differing: {diffs[:12]}")
+            held = (f"within STEP_TOL {dev_tol} (two eager runs differ too, "
+                    f"at {eager_diffs[:6]}; the captured run at "
+                    f"{diffs[:6]})")
+        tail = slice(CT_STEPS - CT_MEDIAN, CT_STEPS)
+        e_ms = sorted(eager["host_ms"][tail])[CT_MEDIAN // 2]
+        c_ms = sorted(cap["host_ms"][tail])[CT_MEDIAN // 2]
+        d_ms = sorted(cap["device_ms_replays"])[CT_REPLAYS // 2]
+        r = {"batch": batch, "seq_len": seq, "grad_accum": ga,
+             "steps": CT_STEPS, "flip_after_step": CT_FLIP,
+             "held": held, "host_ms_median_eager": e_ms,
+             "host_ms_median_captured": c_ms, "device_ms_a_replay": d_ms,
+             "device_ms_replays": cap["device_ms_replays"],
+             "idle_share": 1.0 - d_ms / c_ms,
+             "host_ms_eager": eager["host_ms"],
+             "host_ms_captured": cap["host_ms"],
+             "capture_seconds": cap["capture_seconds"],
+             "launches_a_replay": cap["launches_a_replay"],
+             "replays": cap["replays"],
+             "peak_memory_gb_eager": eager["peak_memory_gb"],
+             "peak_memory_gb_captured": cap["peak_memory_gb"],
+             "peak_reserved_gb_captured": cap["peak_reserved_gb"],
+             "losses": [row["loss"] for row in cap["rows"]],
+             "seconds": time.perf_counter() - t0, "card": card}
+        need(all(math.isfinite(x) for x in r["losses"]),
+             f"{arch}: a loss is not finite: {r['losses']}")
+        out[arch] = r
+        print(f"{arch} captured train step ({batch} x {seq}, grad_accum "
+              f"{ga}): {CT_STEPS} steps across an epoch flip = the eager run "
+              f"{held} (every metric, every state leaf's checksum); launches "
+              f"a replay {r['launches_a_replay']}; {r['replays']} replays "
+              f"without a host sync; host median a step {e_ms:.2f} ms eager, "
+              f"{c_ms:.2f} ms captured; device {d_ms:.2f} ms a replay "
+              f"(events), idle share {r['idle_share']:.4f}; warm-up and "
+              f"capture s {r['capture_seconds']}; peak memory "
+              f"{r['peak_memory_gb_eager']:.2f} GB eager, "
+              f"{r['peak_memory_gb_captured']:.2f} GB captured (reserved "
+              f"{r['peak_reserved_gb_captured']:.2f}); {r['seconds']:.1f} s "
+              f"[{card}]")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return out, launches
 
 
 def start_probe(build, name: str, source: str):
@@ -2651,6 +2959,30 @@ def steps_profile(torch, fn, steps: int):
                      short.items(), key=lambda kv: -kv[1])[:10])}
 
 
+FLIP_MEMORY_SHARE = 0.01      # of the card's memory, past flip 1's reading
+
+
+def memory_after_flips(torch, readings, what: str, card) -> dict:
+    """The allocator's (allocated, reserved) bytes after each epoch flip,
+    printed; allocated after flip k may pass flip 1's by at most
+    ``FLIP_MEMORY_SHARE`` of the card's memory (a superseded step's
+    graph, buffers and pool must go)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    need(len(readings) >= 2, f"{what}: {len(readings)} epoch flips, the "
+         f"memory check needs two")
+    first = readings[0][0]
+    print(f"{what}: after each epoch flip allocated "
+          f"{[round(a / 1e9, 3) for a, _ in readings]} GB, reserved "
+          f"{[round(r / 1e9, 3) for _, r in readings]} GB [{card}]")
+    worst = max(a - first for a, _ in readings[1:])
+    need(worst <= FLIP_MEMORY_SHARE * total, f"{what}: allocated memory "
+         f"grew {worst / 1e9:.3f} GB past flip 1's over the epoch flips "
+         f"(limit {FLIP_MEMORY_SHARE * total / 1e9:.3f} GB)")
+    return {"allocated_bytes": [a for a, _ in readings],
+            "reserved_bytes": [r for _, r in readings],
+            "growth_past_flip_1_bytes": worst, "card_bytes": total}
+
+
 def grads_held_to_plain(torch, dev, grads, spec, what: str) -> dict:
     """B5 on both bf16 planes of every gradient leaf against the plain
     histogram, and the gradient probe's coded bits against hist .
@@ -2721,6 +3053,9 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
     need(mgr.n_recompiles == len(built), f"train: {mgr.n_recompiles} step "
          f"builds for the epochs {sorted(built)}")
     need(launches["histogram256"] > 0, "train: kernel B5 was not launched")
+    flip_memory = memory_after_flips(
+        torch, [(r["memory_allocated"], r["memory_reserved"])
+                for r in refreshes], f"{cfg.name} train", card)
 
     # ---- the repeated batch: 4 extra steps at a constant lr (in the
     # run's microbatches), the 2nd and 3rd under the profiler, the host
@@ -2805,7 +3140,7 @@ def train_phase(torch, dev, params, cfg, card, build, *, batch=TRAIN_BATCH,
         "refresh_every": refresh, "lr": TRAIN_LR,
         "losses": [s["loss"] for s in steps],
         "book_epochs": epochs, "refreshed_epoch": mgr.book_epoch,
-        "refreshes": refreshes,
+        "refreshes": refreshes, "memory_after_flips": flip_memory,
         "n_recompiles": mgr.n_recompiles,
         "step_ms_median": med * 1e3, "step_ms_all": [s * 1e3 for s in secs],
         "tokens_per_s": batch * seq / med,
@@ -2849,6 +3184,16 @@ def lifecycle_phase(torch, dev, params, cfg, books, prompts, card, build):
     drift = drift_check(n=8, device=dev)
     eng = Engine(params, cfg, sc, spec, lifecycle=mgr,
                  refresh_every=LIFE_REFRESH, device=dev)
+    flips, refresh = [], eng._maybe_refresh
+
+    def read_after_flip():                      # instrumentation only
+        flipped = refresh()
+        if flipped:
+            flips.append((torch.cuda.memory_allocated(dev),
+                          torch.cuda.memory_reserved(dev)))
+        return flipped
+
+    eng._maybe_refresh = read_after_flip
     t0 = time.perf_counter()
     toks, totals = eng.generate(prompts, LIFE_NEW)
     wall = time.perf_counter() - t0
@@ -2876,6 +3221,7 @@ def lifecycle_phase(torch, dev, params, cfg, books, prompts, card, build):
     for k in ("encode_lookup", "pack_blocks", "histogram256",
               "decode_chunks_multisym"):
         need(launches[k] > 0, f"lifecycle: kernel {k} was not launched")
+    flip_memory = memory_after_flips(torch, flips, "hot-refresh serve", card)
     plain = Engine(params, cfg, sc, spec, device=dev)
     toks_plain, _ = plain.generate(prompts, LIFE_NEW)
     need((toks == toks_plain).all(), "hot refresh: the tokens differ from "
@@ -2884,6 +3230,7 @@ def lifecycle_phase(torch, dev, params, cfg, books, prompts, card, build):
     rec = {"drift_check": drift, "new_tokens": LIFE_NEW,
            "refresh_every": LIFE_REFRESH,
            "book_refreshes": totals["book_refreshes"],
+           "memory_after_flips": flip_memory,
            "book_epochs": epochs, "n_recompiles": mgr.n_recompiles,
            "coded_over_raw_by_step": [m["act_coded_bits"]
                                       / m["act_raw_bits"] for m in steps],
@@ -4571,10 +4918,10 @@ def internvl_phase(torch, dev, card, build):
     last = seq[:, n_seq - 1:n_seq]
     with torch.no_grad():
         pre = {"tokens": prompts, "prefix_embeds": pfx}
-        pre_ms = cuda_ms(torch, lambda: prefill(params, pre, cfg,
-                                                cache_len)[0], 2)
-        pre_dev, pre_ops = device_ms(torch, lambda: prefill(
-            params, pre, cfg, cache_len)[0], 2)
+        reading = eager_reading(torch, lambda: prefill(params, pre, cfg,
+                                                       cache_len)[0])
+        pre_ms, pre_dev = reading["wall_ms"], reading["device_ms"]
+        pre_ops = reading["device_ops"]
         step_dev, step_ops = device_ms(torch, lambda: decode_step(
             params, last, caches, PREFIX + n_seq - 1, cfg)[0], 3)
     table = params["embed"]["table"]          # a step reads B rows of it
@@ -4587,14 +4934,17 @@ def internvl_phase(torch, dev, card, build):
                 + 2.0 * head * BATCH * PROMPT
                 + 4.0 * cfg.n_layers * BATCH * s_all ** 2 * cfg.n_heads
                 * cfg.head_dim)
-    serve.update(prefill_ms=pre_ms, prefill_device_ms=pre_dev,
+    serve.update(prefill_ms=pre_ms, prefill_host_ms=reading["host_ms"],
+                 prefill_host_ms_all=reading["host_ms_all"],
+                 prefill_device_ms=pre_dev,
                  prefill_device_ops=pre_ops, prefill_matmul_flop=pre_flop,
                  decode_step_device_ms=step_dev,
                  decode_step_device_ops=step_ops,
                  decode_step_weight_gb=read_gb,
                  decode_step_bound_ms=read_gb * 1e12 / HBM_BYTES_PER_S)
     print(f"internvl: prefill of {BATCH} x ({PREFIX} + {PROMPT}) {pre_ms:.2f}"
-          f" ms ({pre_dev:.2f} device, {pre_ops:.0f} device ops; "
+          f" ms (host {reading['host_ms']:.2f} until the eager call returns,"
+          f" {pre_dev:.2f} device, {pre_ops:.0f} device ops; "
           f"{pre_flop / 1e12:.1f} TFLOP of products, "
           f"{pre_flop / BF16_FLOP_PER_S * 1e3:.2f} ms at "
           f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s); a decode step "

@@ -9,6 +9,10 @@ Gemma-family model with the single-stage compression feature live:
     path every ``--rebuild-every`` steps (the paper's §4 lifecycle),
   * the collective ledger reports raw vs coded wire traffic at the end.
 
+On CUDA the step is a ``train.CapturedTrainStep`` (the reference jits
+it): captured as a CUDA graph at its first call after each rebuild and
+replayed for every later step; a rebuild releases the superseded one.
+
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_sft_compressed \\
           [--steps 300] [--d-model 768] [--layers 12] [--device cpu]
 (defaults give ~100M params; reduce for a quicker demo)
@@ -21,6 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..capture import release
 from ..comm import CollectiveLedger, CompressionSpec, histogram256
 from ..core.codebook import CodebookRegistry
 from ..core.symbols import bf16_planes, xla_cast
@@ -29,7 +34,7 @@ from ..device import metrics_to_host, resolve_device
 from ..models import BlockGroup, ModelConfig, model_init, param_count
 from ..models.common import tree_leaves
 from ..optim import AdamWConfig, cosine_schedule
-from ..train import make_train_step, train_state_init
+from ..train import CapturedTrainStep, make_train_step, train_state_init
 
 __all__ = ["main"]
 
@@ -81,7 +86,8 @@ def main(argv: Optional[list] = None, *, device=None) -> Dict[str, Any]:
     opt = AdamWConfig(lr=3e-4)
 
     def build_step(s):
-        return make_train_step(cfg, opt, sched, comp_spec=s)
+        step = make_train_step(cfg, opt, sched, comp_spec=s)
+        return CapturedTrainStep(step) if dev.type == "cuda" else step
 
     step = build_step(spec)
     ds = iter(SyntheticDataset(cfg, DataConfig(args.batch_size,
@@ -106,6 +112,7 @@ def main(argv: Optional[list] = None, *, device=None) -> Dict[str, Any]:
             registry.rebuild()
             spec = CompressionSpec.from_registry(registry, "grad", "bf16",
                                                  "ledger")
+            release(step)               # before the new one warms up
             step = build_step(spec)
             rebuilds.append(i)
             print(f"[sft] step {i}: codebooks rebuilt "
@@ -115,6 +122,7 @@ def main(argv: Optional[list] = None, *, device=None) -> Dict[str, Any]:
                                                       1)
             print(f"[sft] step {i:>4} loss={host['loss']:.4f} "
                   f"gnorm={host['grad_norm']:.2f} saved={100 * saved:.1f}%")
+    release(step)
     dt = time.time() - t0
     print(f"\n[sft] {args.steps} steps in {dt:.1f}s "
           f"({args.steps / dt:.2f} steps/s)")

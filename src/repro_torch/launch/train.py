@@ -10,7 +10,13 @@ the codebook lifecycle (bootstrap books → observe → drift → refresh).
 Each step observes the gradient's per-plane histograms (kernel B5 on
 the card) into the lifecycle manager; every ``--refresh-every`` steps
 the drift monitor decides whether the stale books rebuild, and an epoch
-flip swaps in a step bound to the new books (``compiled``).
+flip releases the superseded step and swaps in a step bound to the new
+books (``compiled``).  On CUDA the step is a ``train.CapturedTrainStep``
+(the reference jits it): each epoch's first step runs eagerly and
+captures a CUDA graph, which every later step of the epoch replays; on
+the CPU it is the plain step.  The loop's observe, refresh, ledger and
+one metrics copy a step run outside the graph, as outside the
+reference's jit.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..capture import release
 from ..checkpoint import save_pytree
 from ..comm.compression import histogram256
 from ..comm.ledger import CollectiveLedger
@@ -31,7 +38,7 @@ from ..lifecycle import BookLifecycleManager, DriftThresholds
 from ..models.common import ModelConfig, tree_leaves
 from ..models.transformer import model_init, param_count
 from ..optim.adamw import AdamWConfig, cosine_schedule
-from ..train.step import make_train_step, train_state_init
+from ..train.step import CapturedTrainStep, make_train_step, train_state_init
 
 __all__ = ["bootstrap_codebooks", "train", "main"]
 
@@ -51,6 +58,15 @@ def bootstrap_codebooks(state, lifecycle: BookLifecycleManager,
                           histogram256(sym).cpu().numpy())
 
 
+def _device_memory(dev: torch.device) -> Dict[str, int]:
+    """The caching allocator's allocated and reserved bytes on a CUDA
+    device (nothing on another)."""
+    if dev.type != "cuda":
+        return {}
+    return {"memory_allocated": torch.cuda.memory_allocated(dev),
+            "memory_reserved": torch.cuda.memory_reserved(dev)}
+
+
 def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
           seq_len: int = 128, lr: float = 1e-3, grad_accum: int = 1,
           compress: bool = False, refresh_every: int = 10, seed: int = 0,
@@ -60,8 +76,10 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
     final ``state``, the ``lifecycle`` manager, the ``ledger``, one host
     dict a step (``steps``: scalar metrics and ``step_seconds``, the
     host clock around the step and its one metrics copy), the epoch
-    flips (``refreshes``: step, epoch, the refresh's host seconds) and
-    the bootstrap ``spec``."""
+    flips (``refreshes``: step, epoch, the refresh's host seconds and,
+    on CUDA, ``memory_allocated`` / ``memory_reserved`` bytes once the
+    superseded step is released) and the bootstrap ``spec``.  Every
+    step is released by the end of the run."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev)
@@ -79,8 +97,9 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
     def build_step(mgr):
         spec = (mgr.spec("grad", "bf16", mode="ledger") if compress
                 else None)
-        return make_train_step(cfg, AdamWConfig(lr=lr), sched,
+        step = make_train_step(cfg, AdamWConfig(lr=lr), sched,
                                grad_accum=grad_accum, comp_spec=spec)
+        return CapturedTrainStep(step) if dev.type == "cuda" else step
 
     boot_spec = lifecycle.spec("grad", "bf16") if compress else None
     step_fn = lifecycle.compiled("train_step", build_step)
@@ -108,15 +127,17 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
             if refresh_every > 0 and (i + 1) % refresh_every == 0:
                 t0 = time.perf_counter()
                 new_epoch = lifecycle.maybe_refresh()
+                refresh_s = time.perf_counter() - t0
                 if new_epoch is not None:
+                    release(step_fn)        # before the new one warms up
                     step_fn = lifecycle.compiled("train_step", build_step)
                     worst = max(reports.values(),
                                 key=lambda r: r.excess_bits)
                     rec["refreshes"].append({
-                        "step": i, "epoch": new_epoch,
-                        "seconds": time.perf_counter() - t0,
+                        "step": i, "epoch": new_epoch, "seconds": refresh_s,
                         "kl_bits": worst.kl_bits,
-                        "excess_bits": worst.excess_bits})
+                        "excess_bits": worst.excess_bits,
+                        **_device_memory(dev)})
                     print(f"[train] step {i}: stale books rebuilt → epoch "
                         f"{new_epoch} (kl={worst.kl_bits:.3f} "
                         f"excess={worst.excess_bits:.3f} bits/sym); "
@@ -124,6 +145,7 @@ def train(cfg: ModelConfig, *, steps: int = 20, batch_size: int = 8,
         if i % max(steps // 10, 1) == 0 or i == steps - 1:
             print(f"[train] step {i:>4} loss={row['loss']:.4f} "
                 f"ce={row['ce']:.4f} gnorm={row['grad_norm']:.3f}")
+    release(step_fn)
     rec.update(state=state, lifecycle=lifecycle, ledger=ledger,
                spec=boot_spec, seconds=time.perf_counter() - t_all)
     return rec

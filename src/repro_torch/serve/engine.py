@@ -49,7 +49,6 @@ refuses it.
 """
 from __future__ import annotations
 
-import itertools
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -57,13 +56,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..capture import Capture, CapturedGraphs, check_leaves, release
 from ..comm.compression import CompressionSpec, payload_stats
 from ..comm.transport import (decode_blocks, encode_planes, moe_ep_raw_bits,
                               wire_factor)
 from ..core.codec import get_codec
 from ..core.encoder import DEFAULT_CHUNK, chunk_counts_for, concat_chunks
 from ..device import metrics_to_host, resolve_device
-from ..kernels.build import LAUNCHES, add_launches, private_accumulators
 from ..models.common import ModelConfig, tree_leaves, tree_map
 from ..models.layers import decode_pos
 from ..models.transformer import decode_step, prefill
@@ -185,14 +184,10 @@ def make_serve_step(model_cfg: ModelConfig,
     return step
 
 
-_OWNERS = itertools.count()
-
-
 class _Graph:
-    """One capture of a step: its graph, its input buffers (token,
-    position, caches), its outputs and the launches its capture counted.
-    It holds the parameters it was captured with, whose tensors the
-    graph reads."""
+    """One capture of a step: its input buffers (token, position,
+    caches), its outputs and its ``capture.Capture``.  It holds the
+    parameters it was captured with, whose tensors the graph reads."""
 
     def __init__(self, params, tokens, caches, pos):
         self.params = params
@@ -200,29 +195,26 @@ class _Graph:
         self.pos = decode_pos(pos, tokens.device).to(torch.int32, copy=True)
         self.caches = tree_map(torch.clone, caches)
         self.leaves = tree_leaves(self.caches)
-        self.graph = torch.cuda.CUDAGraph()
+        self.capture = Capture(tokens.device)
         self.outputs = None
-        self.launches: Dict[str, int] = {}
 
     def load(self, tokens, caches, pos) -> None:
         """The call's inputs into the buffers, on the device: no host
         read.  Caches already in the buffers (the last call's output)
-        are not copied."""
+        are not copied; a cache leaf of another shape or dtype raises."""
         self.tokens.copy_(tokens)
         if isinstance(pos, torch.Tensor):
             self.pos.copy_(pos)
         else:
             self.pos.fill_(pos)
         leaves = tree_leaves(caches)
-        if len(leaves) != len(self.leaves):
-            raise ValueError(f"{len(leaves)} cache leaves, the captured "
-                             f"step holds {len(self.leaves)}")
+        check_leaves(leaves, self.leaves, "cache")
         for dst, src in zip(self.leaves, leaves):
             if src is not dst:
                 dst.copy_(src)
 
 
-class CapturedStep:
+class CapturedStep(CapturedGraphs):
     """A serve step captured as a CUDA graph and replayed: the port's
     counterpart of the reference's ``jax.jit`` of ``make_serve_step``.
 
@@ -230,24 +222,19 @@ class CapturedStep:
     → (logits, caches, metrics)``, with ``pos`` an int or a 0-d int32
     tensor.  The first call for a batch size (and parameter tree)
     captures: one eager run of ``step`` on scratch copies of the caches
-    (it fills every table, accumulator and launch setting the kernels'
-    wrappers keep for later calls, and leaves the served caches as they
-    are), then the capture, on a stream of its own.  Every call copies
-    its token and position into the graph's buffers, and its caches
-    unless they are the graph's own (the last call's output), then
-    replays.  The logits, caches and metrics it returns are the graph's
-    buffers, which the next call overwrites.  Nothing falls back to the
-    eager step: a capture or replay that fails raises.
+    (``Capture.warm_up``: it leaves the served caches as they are), then
+    the capture, on a stream of its own.  Every call copies its token and
+    position into the graph's buffers, and its caches unless they are
+    the graph's own (the last call's output), then replays.  The logits,
+    caches and metrics it returns are the graph's buffers, which the
+    next call overwrites.  Nothing falls back to the eager step: a
+    capture or replay that fails raises.
 
-    A replay runs no Python, so each one adds to ``kernels.build
-    .LAUNCHES`` the launches its capture counted (and the capture, which
-    launches nothing, takes them back); B1's and B5's accumulators are
-    the graph's own (``kernels.build.private_accumulators``).
+    ``release()`` drops every graph, its cache buffers included, when
+    the step's book epoch is superseded.  Tensors a caller still holds,
+    such as the last call's caches, stay valid: only the graph's
+    references go.  Launch counts and accumulators: see ``capture``.
     """
-
-    def __init__(self, step):
-        self.step = step                 # the plain version, run eagerly
-        self._graphs: Dict[Tuple[int, int], _Graph] = {}
 
     @torch.no_grad()
     def __call__(self, params, tokens, caches, pos):
@@ -258,33 +245,20 @@ class CapturedStep:
             self._graphs[key] = g
         else:
             g.load(tokens, caches, pos)
-        g.graph.replay()
-        add_launches(g.launches)
+        g.capture.replay()
         logits, metrics = g.outputs
         return logits, g.caches, metrics
 
     def _capture(self, params, tokens, caches, pos) -> _Graph:
-        dev = tokens.device
         g = _Graph(params, tokens, caches, pos)
-        owner = next(_OWNERS)
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream), private_accumulators(owner):
-            self.step(params, g.tokens, tree_map(torch.clone, g.caches),
-                      g.pos)                                  # warm-up
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        before = dict(LAUNCHES)
-        with private_accumulators(owner):
-            with torch.cuda.graph(g.graph, stream=stream):
-                logits, out, metrics = self.step(params, g.tokens, g.caches,
-                                                 g.pos)
+        g.capture.warm_up(self.step, params, g.tokens,
+                          tree_map(torch.clone, g.caches), g.pos)
+        logits, out, metrics = g.capture.capture(self.step, params, g.tokens,
+                                                 g.caches, g.pos)
         if out is not g.caches:
             raise RuntimeError("the captured step did not update its "
                                "caches in place")
         g.outputs = (logits, metrics)
-        g.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
-                      if LAUNCHES[k] != before[k]}
-        add_launches({k: -n for k, n in g.launches.items()})
         return g
 
 
@@ -303,10 +277,11 @@ class Engine:
     ``act_hist_<plane>`` arrays too (kept in ``step_metrics``); the
     engine feeds them into the manager and — every ``refresh_every``
     generated tokens — lets it rebuild stale books.  An epoch flip
-    re-binds the spec to the new books and takes the step the manager's
-    epoch-keyed cache builds for them: between decode steps, never
-    inside one.  ``epoch_specs`` maps each book epoch of the last
-    ``generate`` call to the spec in force at it.
+    re-binds the spec to the new books, releases the superseded step's
+    graphs and takes the step the manager's epoch-keyed cache builds for
+    them: between decode steps, never inside one.  ``epoch_specs`` maps
+    each book epoch of the last ``generate`` call to the spec in force
+    at it.
     """
 
     def __init__(self, params, model_cfg: ModelConfig, serve_cfg: ServeConfig,
@@ -401,13 +376,17 @@ class Engine:
         return self.lifecycle.compiled(name, build)
 
     def _maybe_refresh(self) -> bool:
-        """Let the manager rebuild stale books; swap in the new epoch's
-        spec and step.  Returns True on an epoch flip."""
+        """Let the manager rebuild stale books; release the superseded
+        step and swap in the new epoch's spec and step.  Returns True on
+        an epoch flip."""
         if self.lifecycle is None:
             return False
         if self.lifecycle.maybe_refresh() is None:
             return False
         self._spec = self.lifecycle.respec(self._spec)
+        # the superseded epoch's graphs (cache copies, pools) go; the
+        # caches this generate holds are its tensors and stay
+        release(self._step)
         self._step = self._compile_step()
         self.epoch_specs[self._spec.book_epoch] = self._spec
         return True

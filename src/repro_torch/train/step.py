@@ -19,6 +19,12 @@ lifecycle observes those (``lifecycle.BookLifecycleManager
 the analytic ring factors.  Bit metrics are float64 tensors (exact
 integers); loss, grad norm and learning rate are float32, as in the
 reference.  Nothing in a step waits for the device.
+
+The compiled step: on CUDA the train loops run ``make_train_step``'s
+step as a ``CapturedTrainStep``, captured once as a CUDA graph for each
+batch signature (and, through ``lifecycle.compiled``, each book epoch)
+and replayed for every later step: the reference's ``jax.jit`` of the
+step.  The plain step is its eager version, and the step on the CPU.
 """
 from __future__ import annotations
 
@@ -27,14 +33,15 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..capture import Capture, CapturedGraphs, check_leaves
 from ..comm.compression import CompressionSpec, payload_stats, shannon_bits
 from ..models.common import ModelConfig, tree_leaves, tree_map, tree_unflatten
 from ..models.transformer import forward_train
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_init, adamw_update
 
 __all__ = ["TrainState", "train_state_init", "make_train_step",
-           "cross_entropy_loss", "grad_payload_stats", "loss_and_grads",
-           "STEP_TOL", "step_deviation"]
+           "CapturedTrainStep", "cross_entropy_loss", "grad_payload_stats",
+           "loss_and_grads", "STEP_TOL", "step_deviation"]
 
 # How far one bf16 train step of the port may be from another
 # implementation's on the same params and batch (the reference on the
@@ -337,3 +344,92 @@ def make_train_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig,
         return TrainState(params=params, opt=opt), metrics
 
     return step
+
+
+class _TrainGraph:
+    """One capture of a train step: its static batch buffers, the state
+    whose tensors it reads and writes in place, its metrics and its
+    ``capture.Capture``."""
+
+    def __init__(self, step, state: TrainState, batch, capture: Capture):
+        self.step = step
+        self.state = state
+        self.leaves = tree_leaves(state)
+        self.batch = batch
+        self.capture = capture
+        self.metrics = None
+
+    def body(self):
+        """The recorded function: one step on the buffers, its new params
+        and step count written back into them (the moments move in
+        place in the step itself), returning the metrics."""
+        new, metrics = self.step(self.state, self.batch)
+        for dst, src in zip(self.leaves, tree_leaves(new)):
+            if src is not dst:
+                dst.copy_(src)
+        return metrics
+
+    def load(self, state: TrainState, batch) -> None:
+        """The call's batch into the buffers, and its state unless it is
+        the graph's own (the last call's output); on the device."""
+        for k, dst in self.batch.items():
+            if batch[k] is not dst:
+                dst.copy_(batch[k])
+        leaves = tree_leaves(state)
+        check_leaves(leaves, self.leaves, "state")
+        for dst, src in zip(self.leaves, leaves):
+            if src is not dst:
+                dst.copy_(src)
+
+
+class CapturedTrainStep(CapturedGraphs):
+    """A train step captured as a CUDA graph and replayed: the port's
+    counterpart of the reference's ``jax.jit(make_train_step(...))``.
+
+    Called as the step it wraps, ``(state, batch) → (state, metrics)``.
+    The state is too large to copy (``gemma2-2b``'s moments alone are
+    20 GB), so the first call for a batch signature (the batch's keys,
+    shapes and dtypes and the state's leaf shapes and dtypes) runs one
+    real eager step as the warm-up, on the capture's stream under its
+    private accumulators, and returns its result; then it records the
+    step on that result's tensors, which become the graph's buffers.
+    Recording launches nothing, so no step is lost.  Every later call
+    copies its batch into the graph's static buffers, and its state
+    unless it is the graph's own, then replays.  Nothing falls back to
+    the eager step: a capture or replay that fails raises.
+
+    What the caller may hold on to: the first call consumes the state it
+    is given as the eager step does (its moments move in place; its
+    params are never written, so params a caller passed to
+    ``train_state_init`` stay as they were).  The state every call
+    returns is the graph's own: a replay writes its new params and step
+    count into the same tensors and moves the moments in place, so the
+    next call overwrites them; clone what must outlive it.  The metrics
+    of a replay are the graph's buffers too: copy them
+    (``device.metrics_to_host``) before the next call.
+
+    ``release()`` drops every graph when the step's book epoch is
+    superseded; the state last returned stays valid (its tensors lie
+    outside the graphs' pools).  Launch counts and accumulators: see
+    ``capture``.
+    """
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        key = (tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(batch.items())),
+               tuple((tuple(t.shape), t.dtype) for t in tree_leaves(state)))
+        g = self._graphs.get(key)
+        if g is None:
+            state, metrics, self._graphs[key] = self._capture(state, batch)
+            return state, metrics
+        g.load(state, batch)
+        g.capture.replay()
+        return g.state, g.metrics
+
+    def _capture(self, state: TrainState, batch):
+        capture = Capture(tree_leaves(state)[0].device)
+        buffers = {k: v.clone() for k, v in batch.items()}
+        state, metrics = capture.warm_up(self.step, state, buffers)
+        g = _TrainGraph(self.step, state, buffers, capture)
+        g.metrics = capture.capture(g.body)
+        return state, metrics, g
