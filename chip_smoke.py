@@ -367,14 +367,36 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    replay (CUDA events), the idle share 1 - device / captured host
    median, the warm-up and capture seconds and the peak memory
    (``launches_by_path["captured_train"]``: the captured runs);
-20. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+20. the captured prefill: every ``Engine`` above runs its prefill as a
+   replay of a ``serve.CapturedPrefill`` (captured once as a CUDA graph
+   for each request shape, an engine's graphs in one memory pool).
+   Checked in place, after phase 18's check, on the ``multisym`` wire
+   engine of phase 4 and the wire engines of phases 9-13
+   (``captured_prefill_check``): at the phase's request shape (4 x 64;
+   4 x (1024 + 64) for internvl2-26b), at a shorter prompt
+   (``PREFILL_SHORT``, 32 tokens) and at the phase's shape again, each
+   call on new inputs against ``prefill`` run eagerly on copies of them
+   -- the logits and every cache leaf (KV slots, positions, MoE counts,
+   MLA latents, recurrent states) equal bit for bit; exactly two graphs,
+   in one pool; allocated and reserved bytes across the shorter shape's
+   capture grown by at most its outputs plus 1 % of the card, a replay
+   growing none; one call in torch's sync debug mode "error"; a fresh
+   engine given both shapes and dropped leaving at most 1 % of the card.
+   Printed (and listed again under this phase's header): the host median
+   of 11 calls at the phase's shape, eager and captured in turns, each
+   ending in one sync, a replay's device ms by CUDA events at both
+   shapes, the idle share 1 - device / captured host median, each
+   graph's warm-up and capture seconds, the second capture's growth, the
+   fresh engine's pool and the peak allocated memory;
+21. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
    ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
    ``{"stats": ...}``, one ``{"examples": ...}``, one
-   ``{"mamba2_train": ...}``, one ``{"captured": ...}`` and one
-   ``{"captured_train": ...}`` record, one
-   ``{"kernels": [...]}`` record (B1-B8, with ``launches_by_path`` for
-   every path), then ``{"ok": true, "device": {...}}``.
+   ``{"mamba2_train": ...}``, one ``{"captured": ...}``, one
+   ``{"captured_train": ...}`` and one ``{"captured_prefill": ...}``
+   record, one ``{"kernels": [...]}`` record (B1-B8, with
+   ``launches_by_path`` for every path), then ``{"ok": true, "device":
+   {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -1089,6 +1111,9 @@ def main() -> int:
         captured_check(torch, eng, prompts, f"gemma2-2b {backend}", card,
                        build, ("encode_lookup", "pack_blocks",
                                "histogram256", expect_kernel[backend]))
+    # phase 20 on the multisym engine
+    captured_prefill_check(torch, wire_engines["multisym"], prompts,
+                           "gemma2-2b", card)
     del wire_engines
 
     # The serve step itself must not wait for the device: Engine.generate
@@ -1277,7 +1302,22 @@ def main() -> int:
     phase("19. captured train step (gemma2-2b, hubert-xlarge, mamba2-780m)")
     ct_rec, ct_launches = captured_train_phase(torch, dev, card, build)
 
-    # ------------------------------------------------------ 20. records
+    # ------------------ 20. the captured prefill (checked in place)
+    phase("20. captured prefill")
+    want = {"gemma2-2b", "llama4-scout-17b-a16e", "deepseek-v3-671b",
+            *RECURRENT, "internvl2-26b"}
+    need(set(CAPTURED_PREFILL) == want, f"captured prefill checked on "
+         f"{sorted(CAPTURED_PREFILL)}, not on {sorted(want)}")
+    for path, r in CAPTURED_PREFILL.items():
+        print(f"{path} {r['shapes']['long']}: host median "
+              f"{r['host_ms_median_eager']:.3f} ms eager, "
+              f"{r['host_ms_median_captured']:.3f} ms captured "
+              f"({r['host_ms_median_eager'] / r['host_ms_median_captured']:.2f}"
+              f"x); device {r['device_ms_a_replay']['long']:.3f} ms a replay; "
+              f"idle share {r['idle_share']:.3f}; replays = eager bit for bit "
+              f"at {r['shapes']['long']} and {r['shapes']['short']} [{card}]")
+
+    # ------------------------------------------------------ 21. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1348,6 +1388,7 @@ def main() -> int:
     print(json.dumps({"card": card, "mamba2_train": mamba_rec}))
     print(json.dumps({"card": card, "captured": CAPTURED}))
     print(json.dumps({"card": card, "captured_train": ct_rec}))
+    print(json.dumps({"card": card, "captured_prefill": CAPTURED_PREFILL}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2048,6 +2089,206 @@ def captured_check(torch, eng, prompts, path, card, build, expect,
           f"sync; host median a step {eager_ms:.3f} ms eager, {cap_ms:.3f} "
           f"ms captured; device {device:.3f} ms a replay (events), idle "
           f"share {rec['idle_share']:.3f} ({rec['seconds']:.1f} s) [{card}]")
+    return rec
+
+
+# ------------------------------------------- 20. the captured prefill
+PREFILL_SHORT = 32            # the second request shape's prompt tokens
+PREFILL_REPS = 11             # calls in each host median
+PREFILL_EVENTS = 5            # replays timed by CUDA events, a shape
+PREFILL_MEMORY_SHARE = 0.01   # of the card's memory, past a capture's outputs
+CAPTURED_PREFILL = {}         # path -> phase 20's record of that engine
+
+
+def captured_prefill_check(torch, eng, prompts, path, card,
+                           prefix=None) -> dict:
+    """Phase 20 on one served engine whose ``generate`` has run (so its
+    ``CapturedPrefill`` holds the graph of the phase's request shape):
+    each call against the eager ``prefill`` on copies of the same inputs
+    (logits and every cache leaf bit for bit), at the phase's shape, at a
+    shorter prompt (``PREFILL_SHORT`` tokens, a second graph in the
+    first one's pool) and at the phase's shape again; exactly two graphs;
+    allocated and reserved bytes across the second shape's capture grown
+    by at most its outputs plus ``PREFILL_MEMORY_SHARE`` of the card, a
+    replay growing none; one replay in sync debug mode "error"; a fresh
+    engine of the same model given both shapes and dropped, its memory
+    returned.  Timed: the host median of ``PREFILL_REPS`` calls at the
+    phase's shape, eager and captured, each ending in one sync, a
+    replay's device ms by CUDA events at both shapes, the idle share
+    1 - device / captured host median, each graph's warm-up and capture
+    seconds, peak allocated memory.  Records into ``CAPTURED_PREFILL``."""
+    from repro_torch.models import prefill
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve import CapturedPrefill, Engine
+
+    t_check = time.perf_counter()
+    cap, params, cfg = eng._prefill, eng.params, eng.cfg
+    need(isinstance(cap, CapturedPrefill), f"{path}: the engine's prefill "
+         f"is a {type(cap).__name__}, not a CapturedPrefill")
+    need(len(cap._graphs) == 1, f"{path}: generate left "
+         f"{len(cap._graphs)} prefill graphs, not 1")
+    slack = PREFILL_MEMORY_SHARE * torch.cuda.get_device_properties(
+        0).total_memory
+    seq = {"long": prompts.shape[1], "short": PREFILL_SHORT}
+    shape = {k: f"{prompts.shape[0]} x "
+             f"{'' if prefix is None else f'({prefix.shape[1]} + '}{s}"
+             f"{'' if prefix is None else ')'}" for k, s in seq.items()}
+
+    def request(which, variant):
+        """New inputs of a shape: the prompts shifted by ``variant`` in
+        the vocabulary, the prefix rolled by as many patches."""
+        b = {"tokens": (prompts[:, :seq[which]] + variant) % cfg.vocab_size}
+        if prefix is not None:
+            b["prefix_embeds"] = prefix.roll(variant, dims=1)
+        return b
+
+    def memory():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    def held(which, variant, what):
+        """One call against the eager prefill, bit for bit: (allocated,
+        reserved) bytes the call grew, its outputs' bytes."""
+        b = request(which, variant)
+        a0, r0 = memory()
+        logits, caches = cap(params, b)
+        a1, r1 = memory()
+        want, want_caches = prefill(params, {k: v.clone()
+                                             for k, v in b.items()},
+                                    cfg, eng.serve.max_cache_len)
+        need(same_bits(torch, logits, want), f"{path} {what}: the "
+             f"replayed logits differ from the eager prefill's")
+        got, want = tree_leaves(caches), tree_leaves(want_caches)
+        need(len(got) == len(want), f"{path} {what}: {len(got)} cache "
+             f"leaves, the eager prefill {len(want)}")
+        for j, (a, w) in enumerate(zip(got, want)):
+            need(same_bits(torch, a, w), f"{path} {what}: cache leaf {j} "
+                 f"{tuple(a.shape)} differs from the eager prefill's")
+        out = sum(t.numel() * t.element_size() for t in [logits, *got])
+        return a1 - a0, r1 - r0, out
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        grew = {"long": held("long", 1, f"{shape['long']} replay")}
+        need(grew["long"][:2] == (0, 0), f"{path}: a replay grew memory by "
+             f"{grew['long'][:2]} (allocated, reserved) bytes")
+        grew["short"] = held("short", 0, f"{shape['short']} capture")
+        a, r, out = grew["short"]
+        need(a <= out + slack and r <= out + slack, f"{path}: the "
+             f"{shape['short']} capture grew allocated / reserved memory by "
+             f"{a} / {r} bytes, past its outputs' {out} + {slack:.0f}")
+        held("long", 2, f"{shape['long']} replay after the "
+             f"{shape['short']} capture")
+        held("short", 3, f"{shape['short']} replay")
+        need(len(cap._graphs) == 2, f"{path}: {len(cap._graphs)} prefill "
+             f"graphs after two request shapes")
+        pools = {g.capture.pool for g in cap._graphs.values()}
+
+        # ---- one call (the inputs' copy and the replay) without a sync
+        b = request("long", 4)
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            cap(params, b)
+        except RuntimeError as e:
+            raise SmokeError(f"{path}: a prefill replay waits for the "
+                             f"device: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+        # ---- host median, eager and captured in turns, each one sync
+        host = {"eager": [], "captured": []}
+        sides = (("eager", lambda: prefill(params, b, cfg,
+                                           eng.serve.max_cache_len)),
+                 ("captured", lambda: cap(params, b)))
+        for _ in range(PREFILL_REPS):
+            for side, fn in sides:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host[side].append(time.perf_counter() - t0)
+        del b
+
+        # ---- a replay's device time (events around the graph alone)
+        dev_ms, seconds = {}, {}
+        for g in cap._graphs.values():
+            which = ("long" if g.batch["tokens"].shape[1] == seq["long"]
+                     else "short")
+            seconds[which] = dict(g.capture.seconds)
+            ms = []
+            for _ in range(PREFILL_EVENTS):
+                t_start = torch.cuda.Event(enable_timing=True)
+                t_end = torch.cuda.Event(enable_timing=True)
+                t_start.record()
+                g.capture.graph.replay()
+                t_end.record()
+                t_end.synchronize()
+                ms.append(t_start.elapsed_time(t_end))
+            dev_ms[which] = sorted(ms)[len(ms) // 2]
+        peak = torch.cuda.max_memory_allocated()
+
+        # ---- a fresh engine given both shapes, then dropped
+        before = memory()
+        fresh = Engine(params, cfg, eng.serve, device=eng.device)
+        fresh._prefill(params, request("long", 5))
+        first = memory()
+        fresh._prefill(params, request("short", 6))
+        second = memory()
+        need(len(fresh._prefill._graphs) == 2, f"{path}: the fresh engine "
+             f"holds {len(fresh._prefill._graphs)} prefill graphs")
+        del fresh
+        after = memory()
+    need(len(pools) == 1, f"{path}: the two prefill graphs record into "
+         f"{len(pools)} pools")
+    back = (after[0] - before[0], after[1] - before[1])
+    need(max(back) <= slack, f"{path}: dropping an engine left "
+         f"{back[0]} allocated / {back[1]} reserved bytes of its two prefill "
+         f"graphs")
+
+    def median(v):
+        v = sorted(v)
+        return v[len(v) // 2]
+
+    eager_ms = median(host["eager"]) * 1e3
+    cap_ms = median(host["captured"]) * 1e3
+    rec = {"shapes": shape, "replays_equal_eager": 4, "graphs": 2,
+           "sync_free_replays": 1,
+           "host_ms_median_eager": eager_ms,
+           "host_ms_median_captured": cap_ms,
+           "device_ms_a_replay": dev_ms,
+           "idle_share": 1.0 - dev_ms["long"] / cap_ms,
+           "warm_up_and_capture_s": seconds,
+           "short_capture_grew_bytes": {"allocated": grew["short"][0],
+                                        "reserved": grew["short"][1],
+                                        "outputs": grew["short"][2]},
+           "fresh_engine_reserved_bytes": {"first_graph":
+                                           first[1] - before[1],
+                                           "second_graph":
+                                           second[1] - first[1]},
+           "dropped_engine_left_bytes": {"allocated": back[0],
+                                         "reserved": back[1]},
+           "peak_allocated_gb": peak / 1e9,
+           "seconds": time.perf_counter() - t_check, "card": card}
+    CAPTURED_PREFILL[path] = rec
+    print(f"{path} captured prefill: {shape['long']} and {shape['short']} "
+          f"= the eager prefill bit for bit (logits, caches; 4 calls), one "
+          f"pool; host median {eager_ms:.3f} ms eager, {cap_ms:.3f} ms "
+          f"captured; device {dev_ms['long']:.3f} / {dev_ms['short']:.3f} "
+          f"ms a replay (events), idle share {rec['idle_share']:.3f}; "
+          f"warm-up + capture {seconds['long']['warm_up']:.2f} + "
+          f"{seconds['long']['capture']:.2f} s / "
+          f"{seconds['short']['warm_up']:.2f} + "
+          f"{seconds['short']['capture']:.2f} s; the second capture grew "
+          f"allocated {grew['short'][0] / 1e6:.1f} MB, reserved "
+          f"{grew['short'][1] / 1e6:.1f} MB (outputs "
+          f"{grew['short'][2] / 1e6:.1f} MB); a fresh engine's pool "
+          f"{(first[1] - before[1]) / 1e6:.1f} + "
+          f"{(second[1] - first[1]) / 1e6:.1f} MB, {back[1] / 1e6:.1f} MB "
+          f"left once dropped; peak {peak / 1e9:.2f} GB "
+          f"({rec['seconds']:.1f} s) [{card}]")
     return rec
 
 
@@ -3557,6 +3798,8 @@ def moe_phase(torch, dev, card, build):
     captured_check(torch, eng, prompts, "llama4-scout-17b-a16e", card, build,
                    ("encode_lookup", "pack_blocks", "histogram256",
                     "decode_chunks_multisym"))
+    captured_prefill_check(torch, eng, prompts, "llama4-scout-17b-a16e",
+                           card)                # phase 20
 
     # ---- decode against prefill: replay the engine's steps, then one
     # prefill of the whole sequence; each MoE layer's inputs recorded
@@ -4067,6 +4310,8 @@ def deepseek_phase(torch, dev, card, build):
     captured_check(torch, eng, prompts, "deepseek-v3-671b", card, build,
                    ("encode_lookup", "pack_blocks", "histogram256",
                     "decode_chunks_multisym"))
+    captured_prefill_check(torch, eng, prompts, "deepseek-v3-671b",
+                           card)                # phase 20
 
     # ---- decode against one prefill of the whole sequence: the MLA
     # mixers' outputs and the MoE layer's input (before any router) on
@@ -4547,6 +4792,8 @@ def serve_three_ways(torch, dev, params, cfg, books, prompts, path, card,
     captured_check(torch, eng, prompts, cfg.name, card, build,
                    ("encode_lookup", "pack_blocks", "histogram256",
                     "decode_chunks_multisym"), prefix=prefix)
+    captured_prefill_check(torch, eng, prompts, cfg.name, card,
+                           prefix=prefix)       # phase 20
     return serve, toks, launches, coded
 
 

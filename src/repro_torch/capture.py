@@ -1,7 +1,7 @@
 """CUDA-graph capture shared by the port's compiled steps, the
 counterparts of the reference's ``jax.jit``: the serve engine's decode
-step (``serve.CapturedStep``) and the train step
-(``train.CapturedTrainStep``).
+step (``serve.CapturedStep``) and prefill (``serve.CapturedPrefill``)
+and the train step (``train.CapturedTrainStep``).
 
 A ``Capture`` is one graph with the side stream it is recorded on and
 the owner of its kernels' accumulators.  ``warm_up`` runs a step once,
@@ -13,7 +13,11 @@ sit beside them, and records the step, which launches nothing;
 ``replay`` runs it.  Every capture on a device shares one side stream:
 cuBLAS keeps a workspace for each stream it runs on and never frees it,
 so a new stream for each capture would leave one more workspace on the
-card at every epoch flip.
+card at every epoch flip.  A graph records into a private memory pool of
+its own, or into another graph's (``pool``): graphs that never run at
+the same time may share one, each replay then free to overwrite what
+another graph of the pool left in it (the prefill's graphs do, one
+request shape each).
 
 A replay runs no Python, so no kernel wrapper counts its launches:
 ``capture`` takes back from ``kernels.build.LAUNCHES`` what its
@@ -84,12 +88,14 @@ def release(step) -> None:
 
 class Capture:
     """One CUDA graph of a step on ``device``: its stream, its owner,
-    the launches its recording counted (``launches``) and the host
-    seconds of its warm-up and recording (``seconds``)."""
+    its memory pool (``pool``: the one given, else the graph's own once
+    recorded), the launches its recording counted (``launches``) and the
+    host seconds of its warm-up and recording (``seconds``)."""
 
-    def __init__(self, device):
+    def __init__(self, device, pool=None):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
         self.stream = _STREAMS.get(self.device)
         if self.stream is None:
             self.stream = _STREAMS[self.device] = torch.cuda.Stream(
@@ -121,8 +127,10 @@ class Capture:
         torch.cuda.empty_cache()
         before = dict(LAUNCHES)
         with private_accumulators(self.owner):
-            with torch.cuda.graph(self.graph, stream=self.stream):
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  stream=self.stream):
                 out = fn(*args)
+        self.pool = self.graph.pool()
         self.launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
                          if LAUNCHES[k] != before[k]}
         add_launches({k: -n for k, n in self.launches.items()})

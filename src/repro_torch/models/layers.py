@@ -18,7 +18,8 @@ Its position ``pos`` is a 0-d int32 tensor on the step's device (the
 reference's traced ``jnp.int32``) or a Python int (``decode_pos`` makes
 it the tensor): the slot, the cache writes and the mask are tensor ops,
 so no op reads the position back to the host and a CUDA graph can
-capture the step with ``pos`` in a device buffer.
+capture the step with ``pos`` in a device buffer.  The prefill writes
+its slots the same way (``write_slots``), so a graph captures it too.
 """
 from __future__ import annotations
 
@@ -95,16 +96,18 @@ def decode_slot(pos: torch.Tensor, slots: int, window: int) -> torch.Tensor:
     return slot.reshape(1).to(torch.int64)
 
 
-def write_slot(cache: torch.Tensor, slot: torch.Tensor,
-               value: torch.Tensor) -> None:
-    """``cache[:, slot] = value`` (value (B, ...), cast by ``cache_cast``)
-    through ``index_copy_``, which reads no index back to the host (an
-    assignment at a tensor index would); a float8 cache is written as
-    its uint8 bits (``index_copy_`` has no float8 kernel on the CPU)."""
-    v = cache_cast(value, cache.dtype).unsqueeze(1)
+def write_slots(cache: torch.Tensor, slots: torch.Tensor,
+                value: torch.Tensor) -> None:
+    """``cache[:, slots] = value`` (slots an int64 index (n,), value
+    (B, n, ...), cast by ``cache_cast``) through ``index_copy_``, which
+    reads no index back to the host (an assignment at a tensor index
+    may: at a 0-d one it calls ``.item()``); a float8 cache is written
+    as its uint8 bits (``index_copy_`` has no float8 kernel on the
+    CPU)."""
+    v = cache_cast(value, cache.dtype)
     if cache.is_floating_point() and cache.element_size() == 1:
         cache, v = cache.view(torch.uint8), v.view(torch.uint8)
-    cache.index_copy_(1, slot, v)
+    cache.index_copy_(1, slots, v)
 
 
 def valid_slots(cpos: torch.Tensor, pos: torch.Tensor,
@@ -234,9 +237,9 @@ def attn_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
     take = min(s, slots)
     src = torch.arange(take, device=x.device) + (s - take)
     dst = src % slots if window > 0 else src
-    cache["k"][:, dst] = cache_cast(k[:, s - take:], cache["k"].dtype)
-    cache["v"][:, dst] = cache_cast(v[:, s - take:], cache["v"].dtype)
-    cache["pos"][dst] = src.to(torch.int32)
+    write_slots(cache["k"], dst, k[:, s - take:])
+    write_slots(cache["v"], dst, v[:, s - take:])
+    cache["pos"].index_copy_(0, dst, src.to(torch.int32))
     return y, cache
 
 
@@ -251,8 +254,8 @@ def attn_decode(params, x, cache, pos, cfg: ModelConfig, *,
     q, k, v = _qkv(params, x, cfg, positions)
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     slot = decode_slot(pos, ck.shape[1], window)
-    write_slot(ck, slot, k[:, 0])
-    write_slot(cv, slot, v[:, 0])
+    write_slots(ck, slot, k)
+    write_slots(cv, slot, v)
     cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
     valid = valid_slots(cpos, pos, window)
     out = _attend(q, ck.to(q.dtype), cv.to(q.dtype),

@@ -26,9 +26,9 @@ import torch
 
 from .common import (Axes, ModelConfig, PSpec, shard_or_replicate,
                      truncated_normal_init)
-from .layers import (_NEG, _seq_mask, cache_cast, decode_pos, decode_slot,
+from .layers import (_NEG, _seq_mask, decode_pos, decode_slot,
                      rmsnorm_apply, rmsnorm_init, rmsnorm_pspec, rope_apply,
-                     valid_slots, write_slot)
+                     valid_slots, write_slots)
 
 __all__ = ["mla_init", "mla_pspec", "mla_apply", "mla_cache_init",
            "mla_cache_pspec", "mla_decode", "mla_prefill"]
@@ -143,8 +143,8 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, *,
     c_kv, k_rope = _project_kv_latent(params, x, cfg, positions)
     ckv, krope, cpos = cache["ckv"], cache["krope"], cache["pos"]
     slot = decode_slot(pos, ckv.shape[1], window)
-    write_slot(ckv, slot, c_kv[:, 0])
-    write_slot(krope, slot, k_rope[:, 0])
+    write_slots(ckv, slot, c_kv)
+    write_slots(krope, slot, k_rope)
     cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
     valid = valid_slots(cpos, pos, window)
 
@@ -174,8 +174,7 @@ def mla_prefill(params, x, cfg: ModelConfig, cache_len: int, *,
     take = min(s, slots)
     src = torch.arange(take, device=x.device) + (s - take)
     dst = src % slots if window > 0 else src
-    cache["ckv"][:, dst] = cache_cast(c_kv[:, s - take:], cache["ckv"].dtype)
-    cache["krope"][:, dst] = cache_cast(k_rope[:, s - take:],
-                                        cache["krope"].dtype)
-    cache["pos"][dst] = src.to(torch.int32)
+    write_slots(cache["ckv"], dst, c_kv[:, s - take:])
+    write_slots(cache["krope"], dst, k_rope[:, s - take:])
+    cache["pos"].index_copy_(0, dst, src.to(torch.int32))
     return y, cache

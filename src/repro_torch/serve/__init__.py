@@ -1,3 +1,5 @@
-from .engine import CapturedStep, Engine, ServeConfig, make_serve_step
+from .engine import (CapturedPrefill, CapturedStep, Engine, ServeConfig,
+                     make_serve_step)
 
-__all__ = ["CapturedStep", "Engine", "ServeConfig", "make_serve_step"]
+__all__ = ["CapturedPrefill", "CapturedStep", "Engine", "ServeConfig",
+           "make_serve_step"]

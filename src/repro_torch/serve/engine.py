@@ -37,8 +37,15 @@ size (and each book epoch under a lifecycle manager) and replayed for
 every decode step, with the token, the position and the caches in the
 graph's own device buffers (the reference's ``jax.jit`` of the step with
 its traced ``jnp.int32`` position).  ``make_serve_step`` is its plain
-version, and the step the engine runs on the CPU.  The prefill runs
-eagerly, once a request.
+version, and the step the engine runs on the CPU.
+
+The compiled prefill: on CUDA the engine runs ``prefill`` as a
+``CapturedPrefill``, captured once as a CUDA graph for each request
+shape and replayed for every later request of that shape (the
+reference's ``jax.jit`` of ``prefill``, which compiles once a shape);
+the graphs of an engine share one memory pool, so a prefill's logits and
+caches are valid until the engine's next prefill.  An epoch flip leaves
+them: the prefill reads no book.  On the CPU the prefill runs eagerly.
 
 Prefix embeddings: ``generate(prompt_tokens, n, prefix_embeds=)`` runs
 the prefill on [prefix] + [prompt] (a VLM's patch embeddings), so the
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -67,8 +75,8 @@ from ..models.common import ModelConfig, tree_leaves, tree_map
 from ..models.layers import decode_pos
 from ..models.transformer import decode_step, prefill
 
-__all__ = ["ServeConfig", "Engine", "CapturedStep", "make_serve_step",
-           "make_activation_probe"]
+__all__ = ["ServeConfig", "Engine", "CapturedStep", "CapturedPrefill",
+           "make_serve_step", "make_activation_probe"]
 
 _SCALARS = ("act_raw_bits", "act_coded_bits", "act_wire_raw_bits",
             "act_wire_coded_bits", "act_decoded_bits", "act_decode_chunks",
@@ -262,16 +270,96 @@ class CapturedStep(CapturedGraphs):
         return g
 
 
+class _PrefillGraph:
+    """One capture of the prefill at a request shape: its input buffers
+    (tokens, and the prefix if any), the parameters it reads, its
+    outputs and its ``capture.Capture``."""
+
+    def __init__(self, step, params, batch, capture):
+        self.step, self.params, self.capture = step, params, capture
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.outputs = None
+
+    def body(self):
+        logits, caches = self.step(self.params, self.batch)
+        return {"logits": logits, "caches": caches}
+
+    def load(self, batch) -> None:
+        """The request's inputs into the buffers, on the device: no host
+        read."""
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+
+class CapturedPrefill(CapturedGraphs):
+    """The prefill captured as a CUDA graph and replayed: the port's
+    counterpart of the reference's ``jax.jit(partial(prefill, cfg=...,
+    cache_len=...))``.
+
+    Built on that ``partial`` (``step``) and called as it is, ``(params,
+    batch) → (logits, caches)`` with ``batch`` ``{"tokens": (B, S)
+    int64[, "prefix_embeds": (B, P, d)]}``.  The first call for a batch
+    signature (each input's shape and dtype) and parameter tree copies
+    the inputs into static buffers, runs one eager prefill on them
+    (``Capture.warm_up``, its result dropped), records the prefill and
+    replays it: a new shape costs one warm-up and one recording, as it
+    costs the reference a compile.  Every later call of that signature
+    copies its inputs into the buffers on the device and replays.  The
+    logits and caches returned are a graph's buffers, equal bit for bit
+    to the eager prefill's on the same inputs.  Nothing falls back to
+    the eager prefill: a capture or replay that fails raises.
+
+    All graphs record into one memory pool (the first graph's), since
+    prefill replays run one at a time on one stream: a replay may
+    overwrite the outputs of another shape's.  So the logits and caches
+    a call returns stay valid until the next call, of any shape; the
+    engine consumes them first (the sample, a coded store's ingest and
+    read, the decode graph's copy of the caches).  ``release()`` drops
+    every graph and the pool.
+    """
+
+    def __init__(self, step):
+        super().__init__(step)
+        self._pool = None
+
+    @torch.no_grad()
+    def __call__(self, params, batch):
+        key = (tuple((k, tuple(v.shape), v.dtype)
+                     for k, v in sorted(batch.items())), id(params))
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(params, batch)
+        else:
+            g.load(batch)
+        g.capture.replay()
+        return g.outputs["logits"], g.outputs["caches"]
+
+    def _capture(self, params, batch) -> _PrefillGraph:
+        device = next(iter(batch.values())).device
+        g = _PrefillGraph(self.step, params, batch,
+                          Capture(device, pool=self._pool))
+        g.capture.warm_up(g.body)
+        g.outputs = g.capture.capture(g.body)
+        self._pool = g.capture.pool
+        return g
+
+    def release(self) -> None:
+        self._pool = None
+        super().release()
+
+
 class Engine:
     """Batched-request engine over the port's model functions.
 
     Runs on ``device`` (CUDA unless named); the parameters (or the
     param store) must already lie there.  On CUDA each decode step is a
-    replay of the step captured for the batch size (``CapturedStep``),
-    on the CPU the plain step.  ``generate`` takes one host sync per
-    decode step for its scalar metrics (a coded KV cache adds its own:
-    see ``memstore.kvstore``), and keeps each step's scalars (plus its
-    wall time, ``step_seconds``) in ``step_metrics``.
+    replay of the step captured for the batch size (``CapturedStep``)
+    and each prefill a replay of the prefill captured for the request's
+    shape (``CapturedPrefill``, built once here and kept across epoch
+    flips); on the CPU both run eagerly.  ``generate`` takes one host
+    sync per decode step for its scalar metrics (a coded KV cache adds
+    its own: see ``memstore.kvstore``), and keeps each step's scalars
+    (plus its wall time, ``step_seconds``) in ``step_metrics``.
 
     With a ``lifecycle`` manager the same copy carries the step's
     ``act_hist_<plane>`` arrays too (kept in ``step_metrics``); the
@@ -322,6 +410,10 @@ class Engine:
         self.refresh_every = refresh_every
         self.kv_mode = kv_mode
         self._kv = self._make_kvstore() if kv_mode == "coded" else None
+        self._prefill = partial(prefill, cfg=model_cfg,
+                                cache_len=serve_cfg.max_cache_len)
+        if self.device.type == "cuda":
+            self._prefill = CapturedPrefill(self._prefill)
         self._step = self._compile_step()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(serve_cfg.seed)
@@ -385,7 +477,8 @@ class Engine:
             return False
         self._spec = self.lifecycle.respec(self._spec)
         # the superseded epoch's graphs (cache copies, pools) go; the
-        # caches this generate holds are its tensors and stay
+        # caches this generate holds are its tensors and stay.  The
+        # prefill's graphs read no book, and stay.
         release(self._step)
         self._step = self._compile_step()
         self.epoch_specs[self._spec.book_epoch] = self._spec
@@ -411,8 +504,8 @@ class Engine:
         if prefix_embeds is not None:
             batch["prefix_embeds"] = torch.as_tensor(prefix_embeds).to(
                 self.device)
-        logits, caches = prefill(self.params, batch, self.cfg,
-                                 self.serve.max_cache_len)
+        # on CUDA a replay: its outputs are valid until the next prefill
+        logits, caches = self._prefill(self.params, batch)
         if self._kv is not None:
             # A fresh coded store per request: ingest the prefill slots,
             # then serve every step from decoded reads, so the logits go

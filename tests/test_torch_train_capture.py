@@ -60,6 +60,7 @@ from repro_torch.optim import AdamWConfig, cosine_schedule  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
 
+from _torch_capture import _CPUCapture  # noqa: E402
 from test_torch_decode_pos import _kw  # noqa: E402
 
 torch.set_num_threads(1)
@@ -131,32 +132,6 @@ def test_full_width_train_step_on_meta(arch, meta_b5):
 
 
 # ------------------------- (b) the captured form against the eager step
-class _CPUCapture:
-    """``capture.Capture`` without a device: ``warm_up`` runs the step,
-    ``capture`` records the function and runs nothing (as a recording
-    launches nothing), ``replay`` runs it on the recorded inputs and puts
-    its outputs where the recording's were."""
-    made = []
-
-    def __init__(self, device):
-        self.launches, self.seconds, self.replays = {}, {}, 0
-        self.out = {}
-        _CPUCapture.made.append(self)
-
-    def warm_up(self, fn, *args):
-        return fn(*args)
-
-    def capture(self, fn, *args):
-        self.fn, self.args = fn, args
-        return self.out
-
-    def replay(self):
-        self.replays += 1
-        out = self.fn(*self.args)
-        self.out.clear()
-        self.out.update(out)
-
-
 @pytest.fixture
 def cpu_capture(monkeypatch):
     _CPUCapture.made = []
