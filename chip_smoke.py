@@ -388,15 +388,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    shapes, the idle share 1 - device / captured host median, each
    graph's warm-up and capture seconds, the second capture's growth, the
    fresh engine's pool and the peak allocated memory;
-21. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
+21. B4 over the reference's window domain (``window_domain_phase``):
+   on phase 3's logits hi plane (1 024 000 symbols, chunk 2048) every K
+   from 1 to 16 with s_max 1, 3, 8, 13, 16 and 24, and on ``w_gate[0]``'s
+   hi plane (16 384 chunks) K 8, 14 and 16 with s_max 8 and 16, each
+   LUT the plane's book builds (``multisym_tables(k=, s_max=)``): the
+   kernel equal to its plain version bit for bit and round-tripping the
+   plane, one launch a call.  Printed for each: device ms (the profiler:
+   the kernel's and the wrapper's re-striding copy's) and CUDA-events ms,
+   windows a chunk and the longest chunk's (``multisym_windows``), the
+   chain bound, the slow-window share, the row bytes, where the rows
+   live and the launch shape;
+22. the last lines: one ``{"ring": ...}``, one ``{"lifecycle": ...}``,
    one ``{"train": ...}``, one ``{"moe": ...}``, one ``{"deepseek":
    ...}``, one ``{"recurrent": ...}``, one ``{"prefix": ...}``, one
    ``{"stats": ...}``, one ``{"examples": ...}``, one
    ``{"mamba2_train": ...}``, one ``{"captured": ...}``, one
-   ``{"captured_train": ...}`` and one ``{"captured_prefill": ...}``
-   record, one ``{"kernels": [...]}`` record (B1-B8, with
-   ``launches_by_path`` for every path), then ``{"ok": true, "device":
-   {...}}``.
+   ``{"captured_train": ...}``, one ``{"captured_prefill": ...}`` and
+   one ``{"window_domain": ...}`` record, one ``{"kernels": [...]}``
+   record (B1-B8, with ``launches_by_path`` for every path), then
+   ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a phase before the records: eight serve steps (no
 wire, ``multisym``, ``scan``) under ``torch.profiler``, printing device
@@ -761,7 +772,7 @@ def main() -> int:
     from repro_torch.core.codebook import build_codebook
     from repro_torch.core.encoder import (chunk_capacity_words,
                                           chunk_counts_for, concat_chunks)
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.kernels import bitpack, build, decode, encode
     from repro_torch.launch.dryrun import memstore_check
     from repro_torch.models import (decode_step, forward, model_init,
@@ -817,9 +828,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     for src, log in sorted(build.build_logs().items()):
         for line in log.splitlines():       # -Xptxas -v, kernel by kernel
-            fn = re.search(r"entry function '\w*?\d+(\w+_kernel)", line)
-            if fn:
-                print(f"  ptxas {src} {fn.group(1)}:")
+            fn = re.search(r"entry function '\w*?\d+(\w+_kernel)"
+                           r"(I(?:Li\d+E)+E)?", line)
+            if fn:          # a template's arguments, as <13, 8>
+                args = re.findall(r"Li(\d+)E", fn.group(2) or "")
+                tmpl = f"<{', '.join(args)}>" if args else ""
+                print(f"  ptxas {src} {fn.group(1)}{tmpl}:")
             elif "registers" in line or "spill" in line:
                 print(f"    {line.replace('ptxas info    :', '').strip()}")
 
@@ -966,6 +980,9 @@ def main() -> int:
     print(f"chain probe: {step_ns:.3f} ns per dependent lookup step [{card}]")
     walks = check_walkers(torch, dev, params, cfg, odd, int_ops_per_s,
                           step_ns, sms)
+    # phase 21's weight plane, kept on the host until then
+    gate_hi = bf16_planes(params["groups"][0][0]["ffn"]["w_gate"][0])[
+        "hi"].cpu()
     for k, cases in walks.items():
         st = stats.setdefault(k, {"mismatches": 0, "max_abs_err": 0})
         for r in cases.values():
@@ -980,7 +997,7 @@ def main() -> int:
     logits_fields = {
         k: dict(ns_per_step=timing[k]["ms"] * 1e6
                 / bounds[k][2]["chain_steps_per_chunk"],
-                **launch_shape(k, nb_logits, sms))
+                **launch_shape(k, nb_logits, sms, main_enc["lo"][6]))
         for k in ("decode_chunks_canonical", "decode_chunks_multisym")}
     for k, f in logits_fields.items():
         print_walk(k, "logits plane", dict(
@@ -1317,7 +1334,22 @@ def main() -> int:
               f"idle share {r['idle_share']:.3f}; replays = eager bit for bit "
               f"at {r['shapes']['long']} and {r['shapes']['short']} [{card}]")
 
-    # ------------------------------------------------------ 21. records
+    # ------------------------------------- 21. B4 over the window domain
+    phase("21. B4 over the window domain (K 1-16, s_max 1-24)")
+    gate_hi = gate_hi.to(dev)
+    gate_book = build_codebook(histogram256(gate_hi).cpu().numpy())
+    window = window_domain_phase(torch, dev, {
+        "logits hi plane": (main_enc["hi"][0], books["hi"], WINDOW_KS,
+                            WINDOW_SMAX),
+        "w_gate[0] hi plane": (gate_hi, gate_book, *WINDOW_GATE)},
+        step_ns, sms, card)
+    del gate_hi
+    st = stats["decode_chunks_multisym"]
+    for r in (r for cases in window.values() for r in cases.values()):
+        st["mismatches"] += r["mismatches"]
+        st["max_abs_err"] = max(st["max_abs_err"], r["max_abs_err"])
+
+    # ------------------------------------------------------ 22. records
     source = "src/repro_torch/kernels/csrc/"
     meta = {
         "encode_lookup": ("B1", "encode.cu", "src/repro/kernels/encode.py:65"),
@@ -1389,6 +1421,7 @@ def main() -> int:
     print(json.dumps({"card": card, "captured": CAPTURED}))
     print(json.dumps({"card": card, "captured_train": ct_rec}))
     print(json.dumps({"card": card, "captured_prefill": CAPTURED_PREFILL}))
+    print(json.dumps({"card": card, "window_domain": window}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1436,22 +1469,33 @@ SHAPE_ENTRIES = {"decode_chunks_canonical": "decode_canonical_shape",
                  "decode_chunks_qlc": "decode_qlc_shape"}
 
 
-def launch_shape(kname: str, nb: int, sms: int) -> dict:
+def launch_shape(kname: str, nb: int, sms: int, lut=None) -> dict:
     """The launch of decode kernel ``kname`` (B3, B4 or B6) for ``nb``
     chunks, as its C entry chooses it: chunks (walker lanes) a CTA,
     walker warps a CTA, CTAs, dynamic shared memory a CTA, CTAs an SM
-    holds at once, and waves."""
+    holds at once, and waves; for B4, with the LUT ``lut`` (syms, meta),
+    its window K, row bytes and where its rows live."""
     import ctypes
     from repro_torch.kernels.build import I, P, bind
-    shape = (ctypes.c_int * 5)()
-    err = bind("decode", SHAPE_ENTRIES[kname], [I, P])(
-        nb, ctypes.addressof(shape))
+    from repro_torch.kernels.decode import multisym_row_bytes
+    shape = (ctypes.c_int * 6)()
+    extra = {}
+    if kname == "decode_chunks_multisym":
+        size, s_max = lut[0].shape
+        k, row = size.bit_length() - 1, multisym_row_bytes(size, s_max)
+        err = bind("decode", SHAPE_ENTRIES[kname], [I, I, I, P])(
+            nb, k, row, ctypes.addressof(shape))
+        extra = {"lut_k": k, "lut_s_max": s_max, "row_bytes": row,
+                 "rows_in": "shared" if shape[5] else "device"}
+    else:
+        err = bind("decode", SHAPE_ENTRIES[kname], [I, P])(
+            nb, ctypes.addressof(shape))
     need(err == 0, f"{kname} launch-shape query failed ({err})")
-    per_cta, warps, ctas, smem, per_sm = list(shape)
+    per_cta, warps, ctas, smem, per_sm = list(shape)[:5]
     need(per_sm > 0, f"{kname}: no CTA fits an SM")
     return {"chunks_per_cta": per_cta, "walker_warps_per_cta": warps,
             "ctas": ctas, "smem_bytes_per_cta": smem, "ctas_per_sm": per_sm,
-            "waves": -(-ctas // (per_sm * sms))}
+            "waves": -(-ctas // (per_sm * sms)), **extra}
 
 
 def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
@@ -1464,7 +1508,6 @@ def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
     data."""
     from repro_torch.core.encoder import PREFIX_BITS, chunk_counts_for
     from repro_torch.core.encoder import concat_chunks
-    from repro_torch.core.huffman import MULTISYM_K, MULTISYM_SMAX
     from repro_torch.core.qlc import qlc_kernel_args
     from repro_torch.kernels import decode, ops
     words, bits = ops.encode_with_book(sym, book, chunk=chunk)
@@ -1475,7 +1518,7 @@ def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
     stream_bytes = used_words(bits) * 4 + nb * 4 + nb * chunk * 4
     canonical_bytes = (3 * 17 + 256) * 4
     steps = int(counts.max())
-    extra = {}
+    extra, lut = {}, None
     if kname == "decode_chunks_qlc":
         args = qlc_kernel_args(book, dev)
 
@@ -1502,14 +1545,15 @@ def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
             def plain():
                 return decode.decode_chunks_multisym_plain(
                     words, counts, *lut, *canon, chunk=chunk)
-            win = multisym_windows(torch, lens, chunk, MULTISYM_K,
-                                   MULTISYM_SMAX)
+            size, s_max = lut[0].shape
+            k = size.bit_length() - 1
+            win = multisym_windows(torch, lens, chunk, k, s_max)
             steps, windows = int(win.max()), int(win.sum())
             bound, by = least_ms(stream_bytes + canonical_bytes
-                                 + (1 << MULTISYM_K) * (MULTISYM_SMAX + 2),
+                                 + size * (min(s_max, k) + 2),
                                  12 * windows + 3 * n, int_ops_per_s)
             extra["windows"] = windows
-            cut = MULTISYM_K
+            cut = k
         else:
             (pre,) = book.device_tables("prefix", dev)
 
@@ -1538,7 +1582,7 @@ def walk_case(torch, dev, kname, sym, book, chunk, int_ops_per_s, step_ns,
             "chain_steps_per_chunk": steps, "chain_step_ns": step_ns,
             "chain_bound_ms": steps * step_ns * 1e-6,
             "ns_per_step": ms * 1e6 / steps, **extra,
-            **launch_shape(kname, nb, sms)}
+            **launch_shape(kname, nb, sms, lut)}
 
 
 def kv_call_planes(torch, dev, params, cfg) -> dict:
@@ -1600,6 +1644,112 @@ def check_walkers(torch, dev, params, cfg, odd, int_ops_per_s, step_ns,
     for p, sym in odd.items():
         run(f"odd chunk {p} plane", sym, ODD_CHUNK, ("decode_chunks_qlc",))
     print(f"walkers beyond the logits planes: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# Phase 21: B4's windows.  On the logits plane every K that the
+# reference's build_multisym_tables takes, with s_max from 1 (one symbol
+# a window) past 16 (a K = 16 window's most); on a weight plane of 16 384
+# chunks the windows whose rows fill shared memory (K 14, 16) beside one
+# that leaves room (K 8).
+WINDOW_KS = tuple(range(1, 17))
+WINDOW_SMAX = (1, 3, 8, 13, 16, 24)
+WINDOW_GATE = ((8, 14, 16), (8, 16))
+WINDOW_REPS = 5
+
+
+def window_case(torch, dev, tag, enc, book, k, s_max, win, step_ns, sms,
+                card):
+    """B4 on one coded plane with the book's (k, s_max) LUT: held to its
+    plain version bit for bit and to the plane, one launch a call (none
+    falls back), timed (the profiler's device events: the kernel's and,
+    where the wrapper re-strides the LUT, its copy's; CUDA events over
+    the calls), with the windows of each chunk, its chain bound, the
+    share of slow windows and the launch shape.  ``win``: the windows
+    of each chunk (``multisym_windows``)."""
+    from repro_torch.core.codebook import multisym_device_tables
+    from repro_torch.core.encoder import concat_chunks
+    from repro_torch.kernels import build, decode
+    sym, words, counts, cc, canon, lens = enc
+    lut = multisym_device_tables(book.multisym_tables(k=k, s_max=s_max), dev)
+
+    def run():
+        return decode.decode_chunks_multisym(words, counts, *lut, *canon,
+                                             chunk=CHUNK)
+
+    before = build.LAUNCHES["decode_chunks_multisym"]
+    got = run()
+    launched = build.LAUNCHES["decode_chunks_multisym"] - before
+    want = decode.decode_chunks_multisym_plain(words, counts, *lut, *canon,
+                                               chunk=CHUNK)
+    bad, err = compare(torch, (got,), (want,))
+    need(launched == 1, f"B4 {tag} K {k} s_max {s_max}: {launched} launches "
+         f"for one call")
+    need(bad == 0, f"B4 {tag} K {k} s_max {s_max}: {bad} symbols differ "
+         f"from the plain version")
+    need(torch.equal(concat_chunks(got, cc), sym), f"B4 {tag} K {k} s_max "
+         f"{s_max}: the kernel does not round-trip the plane")
+    for _ in range(3):      # a window where the profiler missed a launch
+        ev = device_events(torch, run, WINDOW_REPS)     # is read again
+        kern = [v for name, v in ev.items() if "multisym" in name]
+        if sum(n for _, n in kern) == WINDOW_REPS:
+            break
+    whole = sum(n for _, n in kern) == WINDOW_REPS     # else not measured
+    kern = sum(us for us, _ in kern)
+    copy = sum(us for name, (us, _) in ev.items() if "multisym" not in name)
+    windows, longest = int(win.sum()), int(win.max())
+    r = {"k": k, "s_max": s_max, "w": min(k, s_max), "mismatches": bad,
+         "max_abs_err": err,
+         "device_ms": kern / 1e3 / WINDOW_REPS if whole else None,
+         "restride_device_ms": copy / 1e3 / WINDOW_REPS if whole else None,
+         "ms": cuda_ms(torch, run, WINDOW_REPS),
+         "windows_per_chunk": windows / win.numel(),
+         "chain_steps_per_chunk": longest,
+         "chain_bound_ms": longest * step_ns * 1e-6,
+         "slow_window_share": float((lens > k).sum()) / windows,
+         **launch_shape("decode_chunks_multisym", words.shape[0], sms, lut)}
+    dev_ms = (f"{r['device_ms']:.4f} ms (re-stride "
+              f"{r['restride_device_ms']:.4f})" if whole else "not measured "
+              "(the profiler missed launches)")
+    print(f"  B4 {tag} K {k:2d} s_max {s_max:2d}: device {dev_ms}, events "
+          f"{r['ms']:.4f} ms"
+          f", {r['windows_per_chunk']:.1f} windows a chunk (longest "
+          f"{longest}), chain bound {r['chain_bound_ms']:.4f} ms, slow "
+          f"{r['slow_window_share']:.4f}; rows of {r['row_bytes']} B in "
+          f"{r['rows_in']} memory, {r['chunks_per_cta']} chunks a CTA, "
+          f"{r['ctas']} CTAs, {r['waves']} wave(s) [{card}]", flush=True)
+    return r
+
+
+def window_domain_phase(torch, dev, planes, step_ns, sms, card) -> dict:
+    """Phase 21: B4 over the reference's window domain (see WINDOW_KS):
+    ``planes`` maps a tag to (symbols, book, Ks, s_max values).  Returns
+    tag -> "K,s_max" -> ``window_case``'s record."""
+    from repro_torch.core.encoder import chunk_counts_for
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out = {}
+    for tag, (sym, book, ks, smaxes) in planes.items():
+        words, _ = ops.encode_with_book(sym, book, chunk=CHUNK)
+        cc = chunk_counts_for(sym.numel(), CHUNK)
+        counts = torch.from_numpy(cc).to(dev)
+        lens = torch.from_numpy(book.lengths.astype("int64")).to(dev)[
+            sym.long()]
+        enc = (sym, words, counts, cc, book.device_tables("canonical", dev),
+               lens)
+        wins = {}       # the windows depend on K and W = min(K, s_max)
+        out[tag] = {}
+        for k in ks:
+            for s in smaxes:
+                w = min(k, s)
+                key = (k if w > 1 else 0, w)    # one symbol a window: any K
+                if key not in wins:
+                    wins[key] = multisym_windows(torch, lens, CHUNK, k, w)
+                out[tag][f"{k},{s}"] = window_case(
+                    torch, dev, tag, enc, book, k, s, wins[key], step_ns,
+                    sms, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s, "
+          f"{sum(len(v) for v in out.values())} cases [{card}]")
     return out
 
 
@@ -2604,15 +2754,16 @@ def multisym_windows(torch, lens, chunk: int, k: int, s_max: int):
     counts = torch.clamp(n - torch.arange(nb, device=dev) * chunk, max=chunk)
     pos = torch.zeros(nb, dtype=torch.int64, device=dev)
     steps = torch.zeros(nb, dtype=torch.int64, device=dev)
-    while True:
+    for i in range(chunk):                  # every window takes a symbol
+        if i % 64 == 0 and not bool((pos < counts).any()):
+            break                           # (a sync every 64 windows)
         live = pos < counts
-        if not bool(live.any()):
-            return steps
         reach = ends.gather(1, pos[:, None]) + k
         fit = torch.searchsorted(ends, reach, right=True)[:, 0] - 1
         nxt = torch.minimum(torch.maximum(fit, pos + 1), pos + s_max)
         pos = torch.where(live, nxt, pos)
         steps += live.to(torch.int64)
+    return steps
 
 
 def kernel_bounds(torch, enc, chunk, cap_words, int_ops_per_s, step_ns):
@@ -2632,13 +2783,15 @@ def kernel_bounds(torch, enc, chunk, cap_words, int_ops_per_s, step_ns):
     used_words = sum(int(((e[3][1].to(torch.int64) + 31) // 32 + 1).sum())
                      for e in enc.values()) / len(enc)
     tables = (3 * 17 + 256) * 4
-    ms_tables = (1 << 13) * (8 + 2)
+    size, s_max = next(iter(enc.values()))[6][0].shape     # the LUT in use
+    k = size.bit_length() - 1
+    ms_tables = size * (min(s_max, k) + 2)
 
     def best(nbytes, ops):
         tb, to = nbytes / HBM_BYTES_PER_S, ops / int_ops_per_s
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    windows = bits / 13.0                   # a window consumes <= 13 bits
+    windows = bits / k                      # a window consumes <= K bits
     out = {
         "encode_lookup": best(n + 256 * 8 + 8 * n + 8, 2 * n),
         "pack_blocks": best(8 * n + nb * cap * 4 + nb * 4, 12 * n),
@@ -2838,7 +2991,7 @@ def ring_phase(torch, dev, params, cfg, books, step_logits, warm, card,
                                   ring_all_to_all, ring_reduce_scatter)
     from repro_torch.core.codebook import build_codebook
     from repro_torch.core.encoder import decode_jit, encode_jit
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.kernels.ops import message_bits, recode_with_book
     from repro_torch.launch.dryrun import ring_check
     from repro_torch.models.blocks import block_apply
@@ -3552,7 +3705,7 @@ def shipped_bits(torch, send, books, t: int) -> float:
     round t of a loopback all-to-all ships (rank i sends its shard
     (i + t) % n), over the ranks, divided by n: the ring's replicated
     ``hop_coded_bits`` of that round."""
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     n = send.shape[0]
     bits = 0
     for i in range(n):
@@ -3664,7 +3817,7 @@ def moe_phase(torch, dev, card, build):
     from repro_torch.comm.transport import moe_dispatch_raw_bits, wire_factor
     from repro_torch.configs import get_config
     from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.data import DataConfig, SyntheticDataset
     from repro_torch.models import (BlockGroup, decode_step, model_init,
                                     param_count, prefill)
@@ -4163,7 +4316,7 @@ def deepseek_phase(torch, dev, card, build):
     from repro_torch.comm.transport import moe_dispatch_raw_bits, wire_factor
     from repro_torch.configs import get_config
     from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.models import (BlockGroup, decode_step, model_init,
                                     param_count, prefill)
     from repro_torch.models import moe
@@ -4693,7 +4846,7 @@ def serve_three_ways(torch, dev, params, cfg, books, prompts, path, card,
     and the coded engine."""
     from repro_torch.comm.compression import CompressionSpec
     from repro_torch.core.encoder import chunk_counts_for
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.serve import Engine, ServeConfig
 
     spec = CompressionSpec.from_books(books, "bf16", tensor_kind="act",
@@ -4806,7 +4959,7 @@ def recurrent_phase(torch, dev, card, build, arch: str):
     from repro_torch.comm.compression import histogram256
     from repro_torch.configs import get_config
     from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.models import (decode_step, model_init, param_count,
                                     prefill)
     from repro_torch.models import rglru, ssm
@@ -5069,7 +5222,7 @@ def internvl_phase(torch, dev, card, build):
     from repro_torch.comm.compression import histogram256
     from repro_torch.configs import get_config
     from repro_torch.core.codebook import build_codebook
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.models import (decode_step, model_init, param_count,
                                     prefill)
     from repro_torch.models.common import tree_leaves
@@ -5222,7 +5375,7 @@ def hubert_phase(torch, dev, card, build):
     from repro_torch.core.codebook import build_codebook
     from repro_torch.core.encoder import (chunk_counts_for, decode_chunked,
                                           encode_chunked)
-    from repro_torch.core.symbols import SCHEMES
+    from repro_torch.core.symbols import SCHEMES, bf16_planes
     from repro_torch.models import forward, model_init, param_count
 
     t_phase = time.perf_counter()

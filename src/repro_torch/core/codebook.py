@@ -39,7 +39,8 @@ from .huffman import (MAX_CODE_LEN, MULTISYM_K, MULTISYM_SMAX,
                       package_merge_lengths, validate_prefix_free)
 
 __all__ = ["Codebook", "CodebookKey", "CodebookRegistry", "RegistrySnapshot",
-           "build_codebook", "registry_content_hash"]
+           "build_codebook", "multisym_device_tables",
+           "registry_content_hash"]
 
 CodebookKey = Tuple[str, str, str]  # (tensor_kind, dtype_scheme, plane)
 
@@ -80,10 +81,10 @@ class Codebook:
           lut        — ((n, 2) int32 [code, length],)
           canonical  — (first_code, base_index, num_codes, sorted_symbols)
                        int32
-          multisym   — (syms (2^K, s_max) uint8, meta (2^K,) int16): the
-                       kernel's compact LUT; symbols are < 256 and
-                       ``count | bits << 8`` ≤ 8 | 13 << 8, so both fit
-                       in 80 KB of shared memory at K=13, s_max=8
+          multisym   — (syms (2^K, s_max) uint8, meta (2^K,) int16): B4's
+                       compact form of the default LUT (K = MULTISYM_K,
+                       s_max = MULTISYM_SMAX; ``multisym_device_tables``),
+                       80 KB
           prefix     — ((2^PREFIX_BITS,) int16,): B7's one-lookup table
                        of ``symbol | length << 8``
                        (``encoder.canonical_prefix_table``)
@@ -104,9 +105,7 @@ class Codebook:
             out = (t(tb.first_code), t(tb.base_index), t(tb.num_codes),
                    t(tb.sorted_symbols))
         elif name == "multisym":
-            mt = self.multisym_tables()
-            out = (t(mt.syms.astype(np.uint8), torch.uint8),
-                   t(mt.meta.astype(np.int16), torch.int16))
+            out = multisym_device_tables(self.multisym_tables(), dev)
         elif name == "prefix":
             from .encoder import canonical_prefix_table
             out = (canonical_prefix_table(self.device_tables("canonical",
@@ -132,6 +131,15 @@ class Codebook:
         """(n, 2) uint32 [code, length] table — the encoder kernel's LUT."""
         return np.stack([self.codes.astype(np.uint32),
                          self.lengths.astype(np.uint32)], axis=1)
+
+
+def multisym_device_tables(mt: MultiSymTables, device) -> Tuple:
+    """Kernel B4's compact form of a multi-symbol LUT on ``device``:
+    (syms (2^K, s_max) uint8, meta (2^K,) int16).  Symbols are < 256 and
+    ``count | bits << 8`` <= 16 | 16 << 8, so neither loses a bit."""
+    dev = torch.device(device)
+    return (torch.from_numpy(mt.syms.astype(np.uint8)).to(dev),
+            torch.from_numpy(mt.meta.astype(np.int16)).to(dev))
 
 
 def build_codebook(counts: np.ndarray, *, book_id: int = -1,

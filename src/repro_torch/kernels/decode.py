@@ -27,11 +27,17 @@ the lookup and is picked with a select).  A B6 step is B8's QLC step:
 the length from a byte permute of a register, no load.  A B4 step is one
 lookup of the window's top K bits in the LUT's meta, the canonical
 search beside it for first codes longer than K bits, and its symbols one
-8-byte load a step later; its slices are cut by symbols, so a window
-that runs past a slice carries its symbols into the next.  B4 holds its
-LUT as uint8 symbols and uint16 metadata (80 KB of shared memory a CTA)
-and takes only the LUT that ``Codebook.device_tables("multisym")``
-builds, K = ``MULTISYM_K`` and s_max = ``MULTISYM_SMAX``.
+8- or 16-byte load a step later; its slices are cut by symbols, so a
+window that runs past a slice carries its symbols into the next.  B4
+takes every LUT that the reference's kernel takes: syms (2^K, s_max)
+uint8 and meta (2^K,) int16 for any 1 <= K <= max_len and s_max >= 1.
+A window holds at most W = min(s_max, K) codes, so the wrapper hands
+the kernel rows of 8 bytes (W <= 8) or 16 (``multisym_rows``, a copy
+only where s_max is neither); the kernel keeps meta in shared memory,
+and the rows too where they fit beside the launch's lanes, else reads
+them from device memory.  The default LUT (K = ``MULTISYM_K`` = 13,
+s_max = ``MULTISYM_SMAX`` = 8: 80 KB of shared memory a CTA, no copy)
+runs a kernel with K compiled in.
 
 Each has its plain-torch twin beside it: ``decode_chunks_canonical_plain``
 is the reference's ``decode_chunks_jit`` walk, ``decode_chunks_multisym_plain``
@@ -43,14 +49,14 @@ chunk count.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.encoder import (DEFAULT_CHUNK, PREFIX_BITS,
                             canonical_prefix_table, chunk_capacity_words,
                             decode_chunks, decode_chunks_multisym as _multisym)
-from ..core.huffman import MAX_CODE_LEN, MULTISYM_K, MULTISYM_SMAX
+from ..core.huffman import MAX_CODE_LEN
 from ..core.qlc import SYM_TAB_SIZE
 from ..core.qlc import decode_chunks_qlc as _qlc
 from .build import I, P, U, bind, check, count_launch, raise_on
@@ -136,6 +142,31 @@ def decode_chunks_canonical(block_words: torch.Tensor,
     return out
 
 
+def multisym_rows(syms: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """B4's rows for a (2^K, s_max) symbol LUT: (rows (2^K, R), R).
+
+    A K-bit window holds at most W = min(s_max, K) codes (each is at
+    least one bit), so columns past W are zero and a window's symbols
+    fit R = 8 bytes (W <= 8) or 16.  Where s_max is R the LUT is used as
+    it is; otherwise its first W columns are copied into zeroed rows of
+    R bytes, 2^K * R bytes, once per call.
+    """
+    size, s_max = syms.shape
+    w = min(s_max, size.bit_length() - 1)
+    row = multisym_row_bytes(size, s_max)
+    if s_max == row:
+        return syms, row
+    rows = torch.zeros((size, row), dtype=syms.dtype, device=syms.device)
+    rows[:, :w] = syms[:, :w]
+    return rows, row
+
+
+def multisym_row_bytes(size: int, s_max: int) -> int:
+    """R, the bytes of B4's row for a LUT of ``size`` = 2^K windows of at
+    most ``s_max`` symbols: 8 where W = min(s_max, K) <= 8, else 16."""
+    return 8 if min(s_max, size.bit_length() - 1) <= 8 else 16
+
+
 def decode_chunks_multisym(block_words: torch.Tensor,
                            chunk_counts: torch.Tensor, syms: torch.Tensor,
                            meta: torch.Tensor, first_code: torch.Tensor,
@@ -145,12 +176,14 @@ def decode_chunks_multisym(block_words: torch.Tensor,
                            max_len: int = MAX_CODE_LEN) -> torch.Tensor:
     """Kernel B4 on CUDA tensors, its plain version on CPU tensors.
 
-    As ``decode_chunks_canonical`` plus the book's compact LUT
-    (``Codebook.device_tables("multisym", device)``): syms (2^k, s_max)
-    uint8 and meta (2^k,) int16 holding ``count | bits << 8``.  The
-    plain version takes any k and s_max; the kernel only k =
-    ``MULTISYM_K``, s_max = ``MULTISYM_SMAX`` (the LUT every book
-    builds), and raises ``ValueError`` on any other.
+    As ``decode_chunks_canonical`` plus a compact K-bit window LUT:
+    syms (2^K, s_max) uint8 and meta (2^K,) int16 holding ``count |
+    bits << 8``, as ``Codebook.device_tables("multisym", device)``
+    holds the default one (``core.codebook.multisym_device_tables`` any
+    other).  Both take any 1 <= K <= max_len and s_max >= 1; the kernel
+    raises ``ValueError`` where the reference does (a table size that is
+    not a power of two, K past max_len) and on a table of the wrong
+    dtype, shape or alignment.
     """
     tables = (first_code, base_index, num_codes, sorted_symbols)
     if block_words.device.type == "cpu":
@@ -161,14 +194,21 @@ def decode_chunks_multisym(block_words: torch.Tensor,
         raise ValueError(f"no B4 kernel for device {block_words.device}")
     dev, nb, cap = _check_stream(block_words, chunk_counts, chunk, max_len,
                                  tables)
-    size, s_max = 1 << MULTISYM_K, MULTISYM_SMAX
-    if tuple(syms.shape) != (size, s_max):
-        raise ValueError(f"B4 takes the LUT of MULTISYM_K = {MULTISYM_K}, "
-                         f"MULTISYM_SMAX = {MULTISYM_SMAX}: syms must be "
-                         f"{(size, s_max)}, got {tuple(syms.shape)}")
+    if syms.dim() != 2 or syms.shape[1] < 1:
+        raise ValueError(f"syms must be (2^K, s_max) with s_max >= 1, got "
+                         f"{tuple(syms.shape)}")
+    size = syms.shape[0]
+    k = size.bit_length() - 1
+    if size < 2 or size != 1 << k:
+        raise ValueError(f"multisym table size {size} is not a power of two "
+                         f"of at least 2")
+    if k > max_len:
+        raise ValueError(f"multisym window K = {k} exceeds max_len "
+                         f"{max_len}")
     check(syms, "syms", torch.uint8, dev)
     check(meta, "meta", torch.int16, dev, (size,))
-    for name, t in (("syms", syms), ("meta", meta)):
+    rows, row = multisym_rows(syms)
+    for name, t in (("syms", rows), ("meta", meta)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((nb, chunk), dtype=torch.int32, device=dev)
@@ -176,9 +216,9 @@ def decode_chunks_multisym(block_words: torch.Tensor,
               [P, P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, P])
     with torch.cuda.device(dev):
         err = fn(block_words.data_ptr(), chunk_counts.data_ptr(),
-                 syms.data_ptr(), meta.data_ptr(),
+                 rows.data_ptr(), meta.data_ptr(),
                  *(t.data_ptr() for t in tables), sorted_symbols.numel(),
-                 out.data_ptr(), nb, chunk, cap, MULTISYM_K, s_max, max_len,
+                 out.data_ptr(), nb, chunk, cap, k, row, max_len,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "decode_chunks_multisym (B4)")
     count_launch("decode_chunks_multisym")

@@ -44,7 +44,8 @@ from repro_torch.core.encoder import (PREFIX_BITS,  # noqa: E402
                                       encode_chunked_rows)
 from repro_torch.kernels.bitpack import pack_blocks  # noqa: E402
 from repro_torch.kernels.decode import (decode_chunks_canonical,  # noqa: E402
-                                        decode_chunks_multisym as b4)
+                                        decode_chunks_multisym as b4,
+                                        multisym_rows)
 from repro_torch.kernels.encode import (encode_lookup,  # noqa: E402
                                         encode_lookup_plain)
 
@@ -333,28 +334,35 @@ SLICE = 64          # the symbols of a staged slice (walk.cuh's kSlice)
 
 
 def _multisym_walk(words, counts, syms, meta, tables, chunk, max_len):
-    """Kernel B4's walk in numpy, every chunk at once.  A step looks up
-    the window's top K bits in meta (``count | bits << 8``); beside it
-    the canonical search runs over lengths K+1..max_len, falling back to
-    length K + 1 (the reference's argmax over an all-false vector) with
-    sorted_symbols padded to 256 by its last entry, and a count of 0
-    takes the search's length and one symbol (with K >= max_len there is
-    no search: length 0, symbol 0).  A step stages its LUT row's S bytes
-    at the chunk's row byte q, the rest of the last word they touch
-    zeroed, as the kernel's three word stores leave it.  Slices are cut
-    by symbols: a chunk walks until it has decoded k0 + SLICE symbols or
-    its count; then positions past the count are zeroed, the slice is
-    written out from byte r (the row's misalignment), and the bytes past
-    it move to the row's front for the next slice."""
+    """Kernel B4's walk in numpy, every chunk at once.  The wrapper hands
+    the kernel rows of R = 8 or 16 bytes (``multisym_rows``: W = min(s_max,
+    K) symbols, zero past them).  A step looks up the window's top K bits
+    in meta (``count | bits << 8``); beside it the canonical search runs
+    over lengths K+1..max_len, falling back to length K + 1 (the
+    reference's argmax over an all-false vector) with sorted_symbols
+    padded to 256 by its last entry, and a count of 0 takes the search's
+    length and one symbol (with K >= max_len there is no search: length
+    0, symbol 0).  A step stages its row's R bytes at the chunk's row
+    byte q, the rest of the last word they touch zeroed, as the kernel's
+    R / 4 + 1 word stores leave it.  Slices are cut by symbols: a chunk
+    walks until it has decoded k0 + SLICE symbols or its count; then
+    positions past the count are zeroed, the slice is written out from
+    byte r (the row's misalignment), and the bytes past it (up to R - 1
+    symbols and the word that holds the next byte) move to the row's
+    front for the next slice."""
     w = words.view(np.uint32).astype(np.uint64)
     nb, cap = w.shape
-    size, s = syms.shape
+    size = syms.shape[0]
     k = size.bit_length() - 1
+    rows_t, s = multisym_rows(torch.as_tensor(np.asarray(syms, np.uint8)))
+    words_a_row = s // 4 + 1            # a window's word stores
+    row_bytes = 4 * ((3 + SLICE - 1) // 4 + words_a_row)
+    carry = 4 * ((3 + s - 1) // 4 + 1)
     fc, bi, nc, ss = (np.asarray(t, np.int64) for t in tables)
     ss = ss[np.minimum(np.arange(256), ss.size - 1)]
     meta = np.asarray(meta, np.int64) & 0xFFFF
-    syms = np.asarray(syms, np.uint8)
-    rows = np.zeros((nb, 76), np.uint8)
+    syms = rows_t.numpy()
+    rows = np.zeros((nb, row_bytes), np.uint8)
     r = (np.arange(nb) * chunk) & 3
     pos = np.zeros(nb, np.int64)         # the cursor's bit
     done = np.zeros(nb, np.int64)        # symbols decoded
@@ -391,7 +399,7 @@ def _multisym_walk(words, counts, syms, meta, tables, chunk, max_len):
             for j in range(s):
                 rows[live, ql + j] = row[:, j]
             for j in range(s, s + 4):            # the last word's rest
-                tail = (ql + j) < ((ql >> 2) + 3) * 4
+                tail = (ql + j) < ((ql >> 2) + words_a_row) * 4
                 rows[live[tail], (ql + j)[tail]] = 0
             n = np.where(slow, 1, cnt)
             pos[live] += np.where(slow, sl, adv)
@@ -400,20 +408,31 @@ def _multisym_walk(words, counts, syms, meta, tables, chunk, max_len):
         for c in range(nb):
             rows[c, r[c] + max(counts[c], k0) - k0:r[c] + k1 - k0] = 0
             out[c, k0:k1] = rows[c, r[c]:r[c] + k1 - k0]
-        rows[:, :12] = rows[:, SLICE:SLICE + 12]
+        rows[:, :carry] = rows[:, SLICE:SLICE + carry]
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _b4_books():
-    """B3's steep and one-symbol books (max_len 16: the search over
-    lengths 14-16 runs beside the lookup) and the steep counts limited
-    to max_len 13 = MULTISYM_K (the kernel's walk with no search)."""
+    """B3's steep and one-symbol books (max_len 16: at K = 13 the search
+    over lengths 14-16 runs beside the lookup) and the steep counts
+    limited to max_len 13 = MULTISYM_K (the kernel's walk with no search
+    at K = 13), and a skewed book (one 1-bit code, two 2-bit codes)
+    whose stream nearly fills every window: at K = 16 a window of up to
+    16 symbols, cut off the slices' grid by the 2-bit codes, runs up to
+    15 symbols past a slice."""
     books = _b3_books()
     steep = np.maximum((2.0 ** -np.arange(256) * 2 ** 40).astype(np.int64), 1)
+    skew = np.zeros(256, np.int64)
+    skew[[7, 3, 200]] = 1 << 20, 1, 1
+    rng = np.random.default_rng(28)
+    skewed = np.where(rng.random(3000) < 0.95, 7,
+                      np.where(rng.random(3000) < 0.5, 3, 200))
     return {"steep": books["steep"], "one_symbol": books["one_symbol"],
             "len13": (build_codebook(steep, max_len=MULTISYM_K),
-                      books["steep"][1])}
+                      books["steep"][1]),
+            "skewed": (build_codebook(skew, floor=0),
+                       skewed.astype(np.uint8))}
 
 
 def _oracle_rows(words, counts, book, chunk):
@@ -425,17 +444,23 @@ def _oracle_rows(words, counts, book, chunk):
     return out
 
 
+@pytest.mark.parametrize("window", ["13x8", "12x16", "max_len x16"])
 @pytest.mark.parametrize("chunk,n", [(31, 100), (512, 1300), (1001, 1100),
-                                     (2048, 2100)])
-@pytest.mark.parametrize("name", ["steep", "len13", "one_symbol"])
-def test_b4_multisym_step_walk_matches_reference(name, chunk, n):
+                                     (1001, 3000), (2048, 2100)])
+@pytest.mark.parametrize("name", ["steep", "len13", "one_symbol", "skewed"])
+def test_b4_multisym_step_walk_matches_reference(name, chunk, n, window):
+    """At the default LUT (K = 13, s_max = 8: rows of 8 bytes), at K = 12
+    with s_max = 16 (rows of 16, W = 12) and at K = the book's max_len
+    with s_max = 16 (no search; rows of 16)."""
     book, sym = _b4_books()[name]
     sym = sym[:n]
     max_len = book.max_len
-    mt = book.multisym_tables()           # K = 13, s_max = 8: the kernel's
-    assert mt.syms.shape == (1 << MULTISYM_K, MULTISYM_SMAX)
-    if name == "steep":
-        assert (book.lengths[sym] > MULTISYM_K).any()   # the search runs
+    k, s_max = {"13x8": (MULTISYM_K, MULTISYM_SMAX), "12x16": (12, 16),
+                "max_len x16": (max_len, 16)}[window]
+    mt = book.multisym_tables(k=k, s_max=s_max)
+    assert mt.syms.shape == (1 << k, s_max)
+    if name == "steep" and k < max_len:
+        assert (book.lengths[sym] > k).any()    # the search runs
     if name == "len13":
         assert max_len == book.lengths.max() == MULTISYM_K
     tw, _ = encode_chunked_rows(torch.from_numpy(sym),
@@ -449,10 +474,11 @@ def test_b4_multisym_step_walk_matches_reference(name, chunk, n):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         np.concatenate([r[:c] for r, c in zip(want, counts)]), sym)
-    if chunk == 2048:
-        # the Pallas kernel at the logits plane's chunk: one interpret-mode
-        # compile a max_len (sorted_symbols zero-padded to 256, as the
-        # kernel pads it); the other chunks hold the walk to the oracle
+    if chunk == 2048 and window == "13x8":
+        # the Pallas kernel at the logits plane's chunk and the default
+        # LUT: one interpret-mode compile a max_len (sorted_symbols
+        # zero-padded to 256, as the kernel pads it); the other chunks and
+        # windows hold the walk to the oracle
         t = book.tables
         ss = np.zeros(256, np.int32)
         ss[:t.sorted_symbols.size] = t.sorted_symbols
